@@ -1,0 +1,14 @@
+from .emotion2vec import Emotion2vecEncoder, extract_features, normalize_wav
+from .extract import FeatureExtractor
+from .heads import DADClassifier, DADEncoder, DADHead, SSRLState
+
+__all__ = [
+    "Emotion2vecEncoder",
+    "extract_features",
+    "normalize_wav",
+    "FeatureExtractor",
+    "DADClassifier",
+    "DADEncoder",
+    "DADHead",
+    "SSRLState",
+]

@@ -1,0 +1,130 @@
+"""emotion2vec (data2vec-multi audio) encoder, the features_only path:
+
+    wav -> conv feature extractor -> LN -> proj(512->768)
+        -> + grouped-conv positional encoding
+        -> prenet LN + 4 AltBlocks (post-LN)
+        -> 8 AltBlocks (post-LN)
+
+Inference only: ``deterministic=False`` (dropout, layerdrop) waits for the
+training slice and raises. ``normalize_wav`` is the waveform layer norm the
+extraction CLI applies before the encoder.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+from torch import nn
+
+from ..configs import EncoderConfig
+from .layers import (
+    AltBlock,
+    ConvFeatureExtractor,
+    Dense,
+    PositionalConv,
+    _not_ported,
+    convert_padding_mask,
+    make_norm,
+)
+
+
+def torch_dtype(name: str) -> torch.dtype:
+    """EncoderConfig.dtype string -> torch dtype."""
+    try:
+        return {"float32": torch.float32, "bfloat16": torch.bfloat16,
+                "float16": torch.float16}[name]
+    except KeyError:
+        raise ValueError(f"unsupported encoder dtype {name!r}") from None
+
+
+def normalize_wav(wav: torch.Tensor,
+                  padding_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Whole-waveform layer norm (zero mean / unit var, no affine, eps 1e-5).
+    With a padding mask, statistics are over valid samples only."""
+    if padding_mask is None:
+        mean = wav.mean(dim=-1, keepdim=True)
+        var = wav.var(dim=-1, keepdim=True, unbiased=False)
+    else:
+        keep = (~padding_mask).to(wav.dtype)
+        n = torch.clamp(keep.sum(dim=-1, keepdim=True), min=1.0)
+        mean = (wav * keep).sum(dim=-1, keepdim=True) / n
+        var = (((wav - mean) * keep) ** 2).sum(dim=-1, keepdim=True) / n
+    return (wav - mean) / torch.sqrt(var + 1e-5)
+
+
+class Emotion2vecEncoder(nn.Module):
+    def __init__(self, cfg: EncoderConfig):
+        super().__init__()
+        if cfg.use_alibi_encoder:
+            raise _not_ported("use_alibi_encoder")
+        self.cfg = cfg
+        dtype = torch_dtype(cfg.dtype)
+        self.dtype = dtype
+        feat_dim = cfg.conv_feature_layers[-1][0]
+
+        self.local_encoder = ConvFeatureExtractor(
+            cfg.conv_feature_layers, dtype=dtype, fast_norm=cfg.fast_conv_norm,
+            gelu_approximate=cfg.gelu_approximate, fast_ln=cfg.fast_ln,
+        )
+        self.proj_ln = make_norm(cfg.fast_ln, 1e-5, feat_dim)
+        self.proj = Dense(feat_dim, cfg.embed_dim, dtype)
+        self.pos_conv = PositionalConv(
+            cfg.embed_dim, depth=cfg.conv_pos_depth, width=cfg.conv_pos_width,
+            groups=cfg.conv_pos_groups, dtype=dtype,
+            gelu_approximate=cfg.gelu_approximate, fast_ln=cfg.fast_ln,
+        )
+        self.prenet_ln = make_norm(cfg.fast_ln, cfg.norm_eps, cfg.embed_dim)
+        names = [f"prenet_block_{i}" for i in range(cfg.prenet_depth)]
+        names += [f"block_{i}" for i in range(cfg.depth)]
+        for name in names:
+            self.add_module(name, AltBlock(
+                cfg.embed_dim, cfg.num_heads, mlp_ratio=cfg.mlp_ratio,
+                norm_eps=cfg.norm_eps, layer_norm_first=cfg.layer_norm_first,
+                dtype=dtype, use_flash=cfg.use_flash_attention,
+                gelu_approximate=cfg.gelu_approximate, fast_ln=cfg.fast_ln,
+                fast_softmax=cfg.fast_softmax,
+                cosine_attention=cfg.cosine_attention,
+            ))
+        self.block_names = tuple(names)
+
+    def forward(
+        self,
+        wav: torch.Tensor,  # (B, T) waveform at 16 kHz
+        padding_mask: Optional[torch.Tensor] = None,  # (B, T) bool True=pad
+        deterministic: bool = True,
+    ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+        if not deterministic:
+            raise _not_ported("the training forward (dropout, layerdrop)")
+        cfg = self.cfg
+        x = self.local_encoder(wav)
+        x = self.proj(self.proj_ln(x).to(self.dtype))
+
+        frame_mask = None
+        if padding_mask is not None:
+            frame_mask = convert_padding_mask(
+                padding_mask, x.shape[1], cfg.conv_feature_layers
+            )
+        x = x + self.pos_conv(x, frame_mask)
+
+        # prenet: post-LN => LN applied BEFORE the blocks
+        x = self.prenet_ln(x).to(self.dtype)
+        for name in self.block_names:
+            x = getattr(self, name)(x, frame_mask)
+        # layer_norm_first=False => no final norm
+        return x, frame_mask
+
+
+def extract_features(
+    model: Emotion2vecEncoder,
+    wav: torch.Tensor,
+    padding_mask: Optional[torch.Tensor] = None,
+    normalize: Optional[bool] = None,
+):
+    """Counterpart of the JAX ``extract_features`` (model holds its params)."""
+    if normalize is None:
+        normalize = model.cfg.normalize_input
+    if normalize:
+        wav = normalize_wav(wav, padding_mask)
+    with torch.no_grad():
+        return model(wav, padding_mask)

@@ -1,0 +1,338 @@
+"""PyTorch building blocks for the emotion2vec (data2vec-multi audio) encoder.
+
+Counterparts of the JAX package's flax modules of the same names, with the
+same parameter tree (flax ``kernel``/``scale`` become torch ``weight``), the
+same (B, T, C) layout at every public function, and the same dtype casts:
+
+- parameters are f32 and cast to the compute dtype at use, as flax's
+  ``dtype=`` does;
+- reference-path LayerNorms compute in f32 and return f32 (callers cast),
+  like ``nn.LayerNorm(dtype=float32)``; ``FastLayerNorm`` keeps f32
+  statistics with compute-dtype arithmetic.
+
+flax's LayerNorm takes the variance as E[x^2] - E[x]^2, ``F.layer_norm`` as
+E[(x - E[x])^2]; in f32 the two differ by rounding only (the parity tests'
+f32 tolerance, atol 3e-5 / rtol 1e-4, covers it).
+
+Convolutions go to ``F.conv1d``: in the JAX package they are XLA
+convolutions, not Pallas kernels. Attention routes to the hand-written
+kernel (``ops/attention.py``) when ``use_flash`` asks for it.
+
+Branches the shipped config never takes (cosine attention, alibi, layerdrop,
+``layer_norm_first=True``) and training-mode dropout are not ported yet and
+raise ``NotImplementedError``.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Sequence, Tuple, Union
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ..ops.attention import flash_attention
+
+# use_flash="auto" routes attention to the kernel at or beyond this frame
+# count (the JAX package's crossover, kept for config compatibility).
+FLASH_AUTO_MIN_FRAMES = 512
+
+
+def _gelu(x: torch.Tensor, approximate: bool) -> torch.Tensor:
+    return F.gelu(x, approximate="tanh" if approximate else "none")
+
+
+def big_neg(dtype: torch.dtype) -> float:
+    return float(torch.finfo(dtype).min) / 2
+
+
+def _not_ported(what: str):
+    return NotImplementedError(
+        f"{what} is not ported to the PyTorch package yet"
+    )
+
+
+class LayerNorm(nn.Module):
+    """flax ``nn.LayerNorm(dtype=out_dtype)``: f32 statistics and
+    arithmetic, result in ``out_dtype``."""
+
+    def __init__(self, dim: int, eps: float, use_scale: bool = True,
+                 use_bias: bool = True, out_dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.dim = dim
+        self.eps = eps
+        self.out_dtype = out_dtype
+        self.weight = nn.Parameter(torch.ones(dim)) if use_scale else None
+        self.bias = nn.Parameter(torch.zeros(dim)) if use_bias else None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = F.layer_norm(x.float(), (self.dim,), self.weight, self.bias, self.eps)
+        return y.to(self.out_dtype)
+
+
+class FastLayerNorm(nn.Module):
+    """LayerNorm with f32 statistics but compute-dtype normalize arithmetic
+    (the JAX package's ``FastLayerNorm``, term for term)."""
+
+    def __init__(self, dim: int, eps: float = 1e-6, use_scale: bool = True,
+                 use_bias: bool = True):
+        super().__init__()
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(dim)) if use_scale else None
+        self.bias = nn.Parameter(torch.zeros(dim)) if use_bias else None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        z = x.float()
+        mu = z.mean(dim=-1, keepdim=True)
+        var = (z * z).mean(dim=-1, keepdim=True) - mu * mu
+        inv = torch.rsqrt(var + self.eps)
+        y = (x - mu.to(x.dtype)) * inv.to(x.dtype)
+        if self.weight is not None:
+            y = y * self.weight.to(x.dtype)
+        if self.bias is not None:
+            y = y + self.bias.to(x.dtype)
+        return y
+
+
+def make_norm(
+    fast: bool,
+    eps: float,
+    dim: int,
+    use_scale: bool = True,
+    use_bias: bool = True,
+    stat_dtype: torch.dtype = torch.float32,
+) -> nn.Module:
+    """Reference-path LayerNorm (f32) or the FastLayerNorm variant."""
+    if fast:
+        return FastLayerNorm(dim, eps, use_scale=use_scale, use_bias=use_bias)
+    return LayerNorm(dim, eps, use_scale=use_scale, use_bias=use_bias,
+                     out_dtype=stat_dtype)
+
+
+class Dense(nn.Module):
+    """flax ``nn.Dense(dtype=...)``: f32 parameters, input and parameters
+    cast to the compute dtype. weight is torch's (out, in)."""
+
+    def __init__(self, in_dim: int, out_dim: int,
+                 dtype: torch.dtype = torch.float32, bias: bool = True):
+        super().__init__()
+        self.dtype = dtype
+        self.weight = nn.Parameter(torch.zeros(out_dim, in_dim))
+        self.bias = nn.Parameter(torch.zeros(out_dim)) if bias else None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        b = None if self.bias is None else self.bias.to(self.dtype)
+        return F.linear(x.to(self.dtype), self.weight.to(self.dtype), b)
+
+
+class Conv(nn.Module):
+    """flax ``nn.Conv`` over (B, T, C): weight is torch's (out, in/groups, k);
+    the (B, C, T) transpose happens only around ``F.conv1d``."""
+
+    def __init__(self, in_dim: int, out_dim: int, kernel: int, stride: int = 1,
+                 padding: int = 0, groups: int = 1, bias: bool = True,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.stride, self.padding, self.groups = stride, padding, groups
+        self.dtype = dtype
+        self.weight = nn.Parameter(torch.zeros(out_dim, in_dim // groups, kernel))
+        self.bias = nn.Parameter(torch.zeros(out_dim)) if bias else None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        b = None if self.bias is None else self.bias.to(self.dtype)
+        y = F.conv1d(x.to(self.dtype).transpose(1, 2), self.weight.to(self.dtype),
+                     b, self.stride, self.padding, 1, self.groups)
+        return y.transpose(1, 2)
+
+
+class ConvFeatureExtractor(nn.Module):
+    """wav2vec2-style conv stack: (B, T) waveform -> (B, T', C).
+
+    ``fast_norm`` keeps the per-layer LayerNorm output in the compute dtype;
+    otherwise it is f32 (fairseq's Fp32LayerNorm) and cast after the GELU.
+    """
+
+    def __init__(self, conv_layers: Sequence[Tuple[int, int, int]],
+                 dtype: torch.dtype = torch.float32, fast_norm: bool = False,
+                 gelu_approximate: bool = False, fast_ln: bool = False):
+        super().__init__()
+        self.n_layers = len(conv_layers)
+        self.dtype = dtype
+        self.gelu_approximate = gelu_approximate
+        ln_dtype = dtype if fast_norm else torch.float32
+        in_c = 1
+        for i, (dim, kernel, stride) in enumerate(conv_layers):
+            self.add_module(f"conv_{i}", Conv(in_c, dim, kernel, stride,
+                                              bias=False, dtype=dtype))
+            self.add_module(f"ln_{i}", make_norm(fast_ln, 1e-5, dim,
+                                                 stat_dtype=ln_dtype))
+            in_c = dim
+
+    def forward(self, wav: torch.Tensor) -> torch.Tensor:
+        x = wav[:, :, None].to(self.dtype)
+        for i in range(self.n_layers):
+            x = getattr(self, f"conv_{i}")(x)
+            x = getattr(self, f"ln_{i}")(x)
+            x = _gelu(x, self.gelu_approximate).to(self.dtype)
+        return x
+
+
+def conv_out_lengths(
+    lengths: torch.Tensor, conv_layers: Sequence[Tuple[int, int, int]]
+) -> torch.Tensor:
+    """Output lengths through the conv stack: floor((L - k) / s + 1) per
+    layer, as a float expression (clips shorter than the receptive field go
+    to 0 or below, as in the JAX package)."""
+    out = lengths
+    for _dim, kernel, stride in conv_layers:
+        out = torch.floor((out - kernel) / stride + 1).to(torch.int32)
+    return out
+
+
+def convert_padding_mask(
+    padding_mask: torch.Tensor,  # (B, T) bool True=pad, at waveform rate
+    out_t: int,
+    conv_layers: Sequence[Tuple[int, int, int]],
+) -> torch.Tensor:
+    """Waveform-rate padding mask -> frame-rate mask."""
+    in_lengths = torch.sum(~padding_mask, dim=-1)
+    out_lengths = conv_out_lengths(in_lengths, conv_layers)
+    frame_idx = torch.arange(out_t, device=padding_mask.device)[None, :]
+    return frame_idx >= out_lengths[:, None]
+
+
+class PositionalConv(nn.Module):
+    """Depth-5 grouped-conv relative positional encoder.
+
+    Padded frames are zeroed before every conv layer, so a padded batch
+    reproduces per-clip (unpadded) extraction exactly."""
+
+    def __init__(self, embed_dim: int, depth: int = 5, width: int = 95,
+                 groups: int = 16, dtype: torch.dtype = torch.float32,
+                 gelu_approximate: bool = False, fast_ln: bool = False):
+        super().__init__()
+        self.depth = depth
+        self.dtype = dtype
+        self.gelu_approximate = gelu_approximate
+        k = max(3, width // depth)
+        # torch SamePad(k) trims the trailing element only for even k.
+        self.trim = 1 if k % 2 == 0 else 0
+        for i in range(depth):
+            self.add_module(f"pos_conv_{i}", Conv(
+                embed_dim, embed_dim, k, padding=k // 2, groups=groups,
+                dtype=dtype))
+            self.add_module(f"pos_ln_{i}", make_norm(
+                fast_ln, 1e-5, embed_dim, use_scale=False, use_bias=False))
+
+    def forward(self, x: torch.Tensor,
+                frame_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        keep = None
+        if frame_mask is not None:
+            keep = (~frame_mask).to(x.dtype)[..., None]
+        for i in range(self.depth):
+            if keep is not None:
+                x = x * keep
+            x = getattr(self, f"pos_conv_{i}")(x)
+            if self.trim:
+                x = x[:, : -self.trim]
+            x = getattr(self, f"pos_ln_{i}")(x)
+            x = _gelu(x, self.gelu_approximate).to(self.dtype)
+        return x
+
+
+class Mlp(nn.Module):
+    """timm-style MLP: fc1 -> GELU -> fc2 (dropout: training slice)."""
+
+    def __init__(self, dim: int, hidden_dim: int, out_dim: int,
+                 dtype: torch.dtype = torch.float32,
+                 gelu_approximate: bool = False):
+        super().__init__()
+        self.gelu_approximate = gelu_approximate
+        self.fc1 = Dense(dim, hidden_dim, dtype)
+        self.fc2 = Dense(hidden_dim, out_dim, dtype)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.fc2(_gelu(self.fc1(x), self.gelu_approximate))
+
+
+class AltAttention(nn.Module):
+    """Multi-head self-attention with fused qkv. ``use_flash`` True, or
+    "auto" at N >= FLASH_AUTO_MIN_FRAMES, routes the core to
+    ``ops.attention.flash_attention``; otherwise the einsum path below."""
+
+    def __init__(self, dim: int, num_heads: int,
+                 dtype: torch.dtype = torch.float32,
+                 use_flash: Union[bool, str] = False,
+                 fast_softmax: bool = False, cosine_attention: bool = False):
+        super().__init__()
+        if cosine_attention:
+            raise _not_ported("cosine_attention")
+        self.num_heads = num_heads
+        self.dtype = dtype
+        self.use_flash = use_flash
+        self.fast_softmax = fast_softmax
+        self.qkv = Dense(dim, dim * 3, dtype)
+        self.proj = Dense(dim, dim, dtype)
+
+    def forward(self, x: torch.Tensor,
+                padding_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        B, N, C = x.shape
+        H = self.num_heads
+        head_dim = C // H
+        scale = head_dim**-0.5
+
+        qkv = self.qkv(x).reshape(B, N, 3, H, head_dim)
+        q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]  # (B, N, H, Dh)
+
+        want_flash = self.use_flash is True or (
+            self.use_flash == "auto" and N >= FLASH_AUTO_MIN_FRAMES
+        )
+        if want_flash:
+            out = flash_attention(
+                (q * scale).transpose(1, 2).contiguous(),
+                k.transpose(1, 2).contiguous(),
+                v.transpose(1, 2).contiguous(),
+                padding_mask=padding_mask,
+            ).transpose(1, 2)
+        else:
+            attn = torch.einsum("bnhd,bmhd->bhnm", q * scale, k)
+            if padding_mask is not None:
+                attn = attn.masked_fill(
+                    padding_mask[:, None, None, :], big_neg(attn.dtype)
+                )
+            if self.fast_softmax:
+                m = attn.amax(dim=-1, keepdim=True)
+                e = torch.exp((attn - m).float()).to(self.dtype)
+                attn = e / e.sum(dim=-1, keepdim=True)
+            else:
+                attn = torch.softmax(attn.float(), dim=-1).to(self.dtype)
+            out = torch.einsum("bhnm,bmhd->bnhd", attn, v)
+
+        return self.proj(out.reshape(B, N, C))
+
+
+class AltBlock(nn.Module):
+    """Transformer block, post-LN variant (the shipped config)."""
+
+    def __init__(self, dim: int, num_heads: int, mlp_ratio: float = 4.0,
+                 norm_eps: float = 1e-6, layer_norm_first: bool = False,
+                 dtype: torch.dtype = torch.float32,
+                 use_flash: Union[bool, str] = False,
+                 gelu_approximate: bool = False, fast_ln: bool = False,
+                 fast_softmax: bool = False, cosine_attention: bool = False):
+        super().__init__()
+        if layer_norm_first:
+            raise _not_ported("layer_norm_first=True")
+        self.dtype = dtype
+        self.attn = AltAttention(dim, num_heads, dtype, use_flash,
+                                 fast_softmax, cosine_attention)
+        self.norm1 = make_norm(fast_ln, norm_eps, dim)
+        self.norm2 = make_norm(fast_ln, norm_eps, dim)
+        self.mlp = Mlp(dim, int(dim * mlp_ratio), dim, dtype, gelu_approximate)
+
+    def forward(self, x: torch.Tensor,
+                padding_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        x = x + self.attn(x, padding_mask)
+        r = self.norm1(x).to(self.dtype)
+        t = self.mlp(r)
+        return self.norm2(r + t).to(self.dtype)
