@@ -1,5 +1,7 @@
 #!/usr/bin/env python3
-"""Drives the PyTorch port's serving path on one NVIDIA GPU and checks it.
+"""Drives the PyTorch port's paths on one NVIDIA GPU and checks them: the
+serving path, the fused-norm probe, the conv front end through its kernel
+and the fused extract+train step.
 
     python3 chip_smoke.py
 
@@ -7,8 +9,8 @@ Phases (any failure raises and the script exits non-zero without a result):
 
 1. device: needs CUDA; prints the card's name and power limit; turns TF32
    off for the f32 checks.
-2. build: compiles every CUDA source of the port with nvcc (sm_90a), all
-   at once, and prints the build seconds.
+2. build: compiles every CUDA source of the port with nvcc (sm_90a), one
+   nvcc per source, all started together, and prints the build seconds.
 3. kernel vs plain: the attention kernel against its plain PyTorch version
    at the serving shapes (B=16, H=12, D=64, N in {49, 399, 1499}), bf16 and
    f32, with suffix padding and one fully masked batch row; times the
@@ -25,14 +27,39 @@ Phases (any failure raises and the script exits non-zero without a result):
    of the same encoder holds the kernel path to the plain one more
    tightly. Prints requests/s, batch latency per bucket, and a
    torch.profiler breakdown of one batch at the 1 s and 30 s buckets.
-5. prints a ``kernels`` JSON line, then the result line
-   ``{"ok": true, "device": {...}}`` last.
+5. fused LN and copy vs plain: the three ``fused_layernorm`` variants at
+   the fused step's shapes, bf16 and f32, plus one backward, and
+   ``copy_rows``; each timed beside its plain version, ``F.layer_norm``
+   (+ add / GELU) or ``Tensor.copy_`` and its bound. Then the probe
+   (``ops/norm_probe.py``) runs as the path of these two kernels, with
+   their launch counts read around it.
+6. conv stack vs plain: ``fused_conv_ln_gelu`` per layer of the
+   emotion2vec front end at B = 64, 4 s clips, on the encoder's own conv
+   weights and the training slice's noisy batch (erf GELU, and tanh for
+   layers 1-6), timed beside the plain version and F.conv1d + F.layer_norm
+   + F.gelu; then the whole front end through the kernel (layer 0 +
+   ``pallas_conv_stack``, its path, launches counted) held against the
+   port's ``ConvFeatureExtractor`` (plain path, erf GELU, f32 LN), bf16
+   and f32.
+7. the training slice: ``bench.py``'s configuration (full-width
+   emotion2vec-base, bf16, tanh GELU, iemocap DAD preset, B = 64 clips of
+   4 s per stream, white noise at 10 dB, cached clean features, epoch 40
+   scalars) with ``use_flash_attention=True``: ``precompute_clean_features``
+   once, then 20 fused extract+train steps. Checks finite losses, that
+   the student and teacher moved, the attention launch count; then 3
+   steps through the kernel and 3 through the plain attention path from
+   the same state and generator seed must agree, with one filler row
+   (all samples padded, ``row_valid`` False) in the noisy batch. Prints
+   ms/step, training clips/s and a torch.profiler breakdown of one step.
+8. prints the ``nvidia-smi`` line, a ``kernels`` JSON line (all four
+   kernels), then the result line ``{"ok": true, "device": {...}}`` last.
 """
 
 from __future__ import annotations
 
 import base64
 import concurrent.futures
+import dataclasses
 import json
 import subprocess
 import sys
@@ -47,6 +74,9 @@ from robust_speech_emotion_recognition_via_dynamic_asymmetric_distillation_in_no
     EncoderConfig,
     dad_preset,
 )
+from robust_speech_emotion_recognition_via_dynamic_asymmetric_distillation_in_noisy_environments_tpu_torch.dad import (
+    StepScalars,
+)
 from robust_speech_emotion_recognition_via_dynamic_asymmetric_distillation_in_noisy_environments_tpu_torch.eval.serving import (
     EmotionPredictor,
     PredictionServer,
@@ -55,16 +85,36 @@ from robust_speech_emotion_recognition_via_dynamic_asymmetric_distillation_in_no
     fairseq_to_torch_encoder,
     torch_state_dict_to_ssrl,
 )
+from robust_speech_emotion_recognition_via_dynamic_asymmetric_distillation_in_noisy_environments_tpu_torch.models.emotion2vec import (
+    normalize_wav,
+)
 from robust_speech_emotion_recognition_via_dynamic_asymmetric_distillation_in_noisy_environments_tpu_torch.models.extract import (
     FeatureExtractor,
 )
+from robust_speech_emotion_recognition_via_dynamic_asymmetric_distillation_in_noisy_environments_tpu_torch.models.layers import (
+    ConvFeatureExtractor,
+)
 from robust_speech_emotion_recognition_via_dynamic_asymmetric_distillation_in_noisy_environments_tpu_torch.ops import (
     attention,
+    conv,
     cuda_build,
+    fused_norm,
+    norm_probe,
+)
+from robust_speech_emotion_recognition_via_dynamic_asymmetric_distillation_in_noisy_environments_tpu_torch.parallel import (
+    FusedBatch,
+    FusedConfig,
+    init_fused,
+    make_fused_extract_train_step,
+    precompute_clean_features,
+)
+from robust_speech_emotion_recognition_via_dynamic_asymmetric_distillation_in_noisy_environments_tpu_torch.parallel.fused import (
+    extract,
 )
 
 PORT_PKG = attention.__name__.split(".")[0]
-SOURCES = ("attention",)  # csrc/<name>.cu
+JAX_PKG = PORT_PKG[: -len("_torch")]
+SOURCES = ("attention", "fused_norm", "conv")  # csrc/<name>.cu
 # Published H100 SXM peaks (dense): bf16 tensor cores, f32 outside them, HBM3.
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 HBM_BYTES_PER_S = 3.35e12
@@ -78,6 +128,37 @@ LOGIT_TOL_BF16 = 0.1
 # f32 encoder features, kernel path vs plain path, 12 blocks deep
 FEAT_TOL_F32 = 1e-3
 SAMPLE_RATE = 16000
+F32_OPS_PER_S = 67e12  # f32 outside the tensor cores: the elementwise work
+# fused LN, kernel vs plain: f32 by summation order and rsqrtf; bf16 by one
+# rounding of outputs up to ~4 (two bf16 ulps)
+LN_TOL = {torch.float32: (2e-5, 1e-5), torch.bfloat16: (2e-2, 1.6e-2)}
+# LN backward through the kernel's autograd Function vs autograd through the
+# plain ops: both f32 inside, and the x / residual gradients are rounded to
+# bf16 once
+LN_GRAD_TOL = (2e-2, 1.6e-2)
+# conv + LN + GELU per layer, kernel vs plain on the same input: both
+# accumulate in f32, so f32 by summation order and bf16 by one rounding
+CONV_TOL = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (2e-2, 1.6e-2)}
+# the whole front end through the kernel vs the port's ConvFeatureExtractor:
+# the module rounds every conv output to bf16 before its f32 LN, the kernel
+# does not, so bf16 differs by a few bf16 ulps compounded over 7 layers
+# (outputs are GELUs of unit-variance rows, O(1)); f32 by summation order
+STACK_TOL = {torch.bfloat16: 0.25, torch.float32: 1e-3}
+STACK_MEAN_TOL_BF16 = 0.01
+# the training slice (bench.py's configuration)
+TRAIN_B, TRAIN_T, TRAIN_STEPS, COMPARE_STEPS = 64, 64000, 20, 3
+# kernel path vs plain attention path after 3 steps from one state: losses
+# move with the bf16 features (the plain path rounds scores to bf16); each
+# Adam step moves a parameter by at most lr * (1 - b1) / sqrt(1 - b2)
+# = 3.2 lr, so two paths part by at most 2 * 3.2 * lr per step
+METRIC_TOL = 0.02  # |a - b| <= 0.02 (1 + |b|)
+ADAM_STEP_BOUND = 3.17
+# DACP thresholds/sums and certainty scores: scores move by the bf16 feature
+# differences averaged over 199 frames by the pooling
+DACP_TOL = 0.01
+# DACP opened: the threshold is each class's low quantile of its scores, so
+# rows pass the mask and the consistency and ECDA terms carry weight
+DACP_OPEN = dict(quantile_start=0.0, quantile_end=0.2, threshold_smoothing_alpha=0.0)
 
 
 def nvidia_smi_line() -> str:
@@ -182,9 +263,9 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def check_attention_kernel(N: int, dtype: torch.dtype) -> dict:
-    """Kernel vs plain version at (16, 12, N, 64); returns the numbers."""
-    q, k, v, mask = attention_inputs(16, 12, N, 64, dtype, seed=N)
+def check_attention_kernel(N: int, dtype: torch.dtype, B: int = 16) -> dict:
+    """Kernel vs plain version at (B, 12, N, 64); returns the numbers."""
+    q, k, v, mask = attention_inputs(B, 12, N, 64, dtype, seed=N)
     out = attention.flash_attention(q, k, v, mask)
     torch.cuda.synchronize()
     ref = attention.flash_attention_reference(q, k, v, mask)
@@ -202,7 +283,7 @@ def check_attention_kernel(N: int, dtype: torch.dtype) -> dict:
     sdpa_mask = ~mask[:, None, None, :]
     bound, bound_by = attention_bound_ms(q, mask)
     return dict(
-        N=N, dtype=str(dtype).replace("torch.", ""),
+        B=B, N=N, dtype=str(dtype).replace("torch.", ""),
         max_abs_err=float(err.max()),
         ms=time_ms(lambda: attention.flash_attention(q, k, v, mask)),
         plain_ms=time_ms(lambda: attention.flash_attention_reference(q, k, v, mask)),
@@ -403,7 +484,427 @@ def run_slice() -> dict:
         raise AssertionError(f"f32 features: kernel vs plain path differ by {f32_err}")
     print(f"slice: f32 features, kernel vs plain attention path: max |diff| "
           f"{f32_err:.2e} (tolerance {FEAT_TOL_F32})", flush=True)
-    return dict(launches=launches, wav_batches=wav_batches)
+    return dict(launches=launches, wav_batches=wav_batches, enc_sd=enc_sd)
+
+
+def bound(nbytes: float, ops: float, peak: float) -> tuple:
+    """(ms, "bytes" | "operations"): the larger of the bytes over HBM
+    bandwidth and the operations over their peak rate."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / peak * 1e3
+    return max(t_bytes, t_ops), ("operations" if t_ops > t_bytes else "bytes")
+
+
+def max_err(out: torch.Tensor, ref: torch.Tensor, tol: tuple, what: str) -> float:
+    """Max |out - ref|; raises unless |out - ref| <= atol + rtol * |ref|
+    everywhere and out is finite."""
+    out, ref = out.float(), ref.float()
+    if not torch.isfinite(out).all():
+        raise AssertionError(f"{what}: non-finite output")
+    err = (out - ref).abs()
+    atol, rtol = tol
+    if not bool((err <= atol + rtol * ref.abs()).all()):
+        raise AssertionError(f"{what}: kernel disagrees with plain: max err "
+                             f"{float(err.max()):.3e}, tolerance {atol} + {rtol}*|ref|")
+    return float(err.max())
+
+
+def ln_case(name: str, shape, dtype, residual: bool, gelu: bool, seed: int) -> dict:
+    """One fused_layernorm variant (always affine, as the encoder's LNs)."""
+    g = torch.Generator().manual_seed(seed)
+    C = shape[-1]
+    x = torch.randn(*shape, generator=g).to("cuda", dtype)
+    res = torch.randn(*shape, generator=g).to("cuda", dtype) if residual else None
+    scale = (torch.randn(C, generator=g) * 0.5 + 1).cuda()
+    bias = (torch.randn(C, generator=g) * 0.1).cuda()
+    act = "gelu_tanh" if gelu else None
+    with torch.no_grad():
+        out = fused_norm.fused_layernorm(x, scale, bias, residual=res, activation=act)
+        torch.cuda.synchronize()
+        ref = fused_norm.fused_layernorm_reference(x, scale, bias, res, act)
+    err = max_err(out, ref, LN_TOL[dtype], f"fused_layernorm {name} {dtype}")
+    sc, bi = scale.to(dtype), bias.to(dtype)
+
+    def library():
+        y = torch.nn.functional.layer_norm(x if res is None else x + res, (C,), sc, bi, 1e-6)
+        return torch.nn.functional.gelu(y, approximate="tanh") if gelu else y
+
+    numel = x.numel()
+    nbytes = (2 + residual) * numel * x.element_size() + 2 * C * 4
+    # f32 operations per element: 3 for the sums, 2 to normalise, 2 affine,
+    # 1 residual add, 9 tanh-GELU
+    ops = numel * (7 + residual + 9 * gelu)
+    b, by = bound(nbytes, ops, F32_OPS_PER_S)
+    with torch.no_grad():
+        return dict(
+            kernel="fused_layernorm", case=name, shape=list(shape),
+            dtype=str(dtype).replace("torch.", ""), max_abs_err=err,
+            ms=time_ms(lambda: fused_norm.fused_layernorm(x, scale, bias, residual=res,
+                                                          activation=act)),
+            plain_ms=time_ms(lambda: fused_norm.fused_layernorm_reference(x, scale, bias,
+                                                                          res, act)),
+            library_ms=time_ms(library), bound_ms=b, bound_by=by)
+
+
+def check_ln_backward() -> float:
+    """The autograd Function's backward (after the kernel's forward) against
+    autograd through the plain ops, at the block norm shape, bf16 + residual."""
+    g = torch.Generator().manual_seed(7)
+    shape = (TRAIN_B, 199, 768)
+    base = [torch.randn(*shape, generator=g).to("cuda", torch.bfloat16),
+            torch.randn(*shape, generator=g).to("cuda", torch.bfloat16),
+            (torch.randn(768, generator=g) * 0.5 + 1).cuda(),
+            (torch.randn(768, generator=g) * 0.1).cuda()]
+    upstream = torch.randn(*shape, generator=g).cuda()
+    grads = []
+    for fn in (fused_norm.fused_layernorm, fused_norm.fused_layernorm_reference):
+        leaves = [t.clone().requires_grad_(True) for t in base]
+        out = fn(leaves[0], leaves[2], leaves[3], leaves[1], "gelu_tanh")
+        (out.float() * upstream).sum().backward()
+        grads.append([t.grad for t in leaves])
+    torch.cuda.synchronize()
+    return max(max_err(a, b, LN_GRAD_TOL, f"fused_layernorm backward ({name})")
+               for a, b, name in zip(grads[0], grads[1], ("x", "residual", "scale", "bias")))
+
+
+def check_copy() -> dict:
+    x = torch.randn(TRAIN_B * 3199, 512, generator=torch.Generator().manual_seed(8)).to(
+        "cuda", torch.bfloat16)
+    out = fused_norm.copy_rows(x)
+    torch.cuda.synchronize()
+    if not torch.equal(out, x):
+        raise AssertionError("copy kernel: the copy differs from its source")
+    dst = torch.empty_like(x)
+    b, by = bound(2 * x.numel() * x.element_size(), 0, F32_OPS_PER_S)
+    return dict(kernel="copy_rows", shape=list(x.shape), dtype="bfloat16", max_abs_err=0.0,
+                ms=time_ms(lambda: fused_norm.copy_rows(x)), plain_ms=time_ms(x.clone),
+                library_ms=time_ms(lambda: dst.copy_(x)), bound_ms=b, bound_by=by)
+
+
+def run_norm_phase() -> dict:
+    """Phase 5: fused LN and copy vs plain, then the probe as their path."""
+    rows = {}
+    shapes = {"res_ln": (TRAIN_B, 199, 768), "ln": (TRAIN_B, 199, 768),
+              "ln_gelu": (TRAIN_B, 3199, 512)}
+    for dtype in (torch.bfloat16, torch.float32):
+        for i, (name, shape) in enumerate(shapes.items()):
+            r = ln_case(name, shape, dtype, residual=name == "res_ln",
+                        gelu=name == "ln_gelu", seed=10 + i)
+            rows[(name, dtype)] = r
+            print("kernel: " + json.dumps(r), flush=True)
+    grad_err = check_ln_backward()
+    print(f"kernel: fused_layernorm backward (bf16, residual, gelu_tanh) vs autograd "
+          f"through the plain ops: max |diff| {grad_err:.3e} (tolerance {LN_GRAD_TOL})",
+          flush=True)
+    rows["copy"] = check_copy()
+    print("kernel: " + json.dumps(rows["copy"]), flush=True)
+
+    fused_norm.fused_layernorm.launches = fused_norm.copy_rows.launches = 0
+    probe = norm_probe.run_probe("cuda", iters=20)
+    launches = dict(fused_layernorm=fused_norm.fused_layernorm.launches,
+                    copy_rows=fused_norm.copy_rows.launches)
+    for row in probe:
+        print("probe: " + json.dumps(row), flush=True)
+    if not all(launches.values()):
+        raise AssertionError(f"the probe did not launch every kernel of its path: {launches}")
+    print(f"probe: launches {launches}", flush=True)
+    return dict(rows=rows, launches=launches)
+
+
+def conv_bound(x, w, t_out: int) -> tuple:
+    """x and w read once, the output written once; the conv's multiply-adds
+    (2 k C_in C_out per output row) at the input type's peak."""
+    B, _L, c_in = x.shape
+    k, _, c_out = w.shape
+    nbytes = (x.numel() + w.numel() + B * t_out * c_out) * x.element_size() + 2 * c_out * 4
+    return bound(nbytes, 2.0 * B * t_out * c_out * k * c_in, PEAK_FLOPS[x.dtype])
+
+
+def conv_case(i: int, x, w, scale, bias, k, s, approx: bool) -> tuple:
+    """Layer i: kernel vs plain on the same input; returns (numbers, the
+    plain output)."""
+    with torch.no_grad():
+        out = conv.fused_conv_ln_gelu(x, w, scale, bias, k, s, approx_gelu=approx)
+        torch.cuda.synchronize()
+        ref = conv.fused_conv_ln_gelu_reference(x, w, scale, bias, k, s, approx)
+        err = max_err(out, ref, CONV_TOL[x.dtype], f"conv layer {i} ({x.dtype}, "
+                      f"{'tanh' if approx else 'erf'})")
+        wt, sc, bi = w.permute(2, 1, 0).contiguous(), scale.to(x.dtype), bias.to(x.dtype)
+
+        def library():
+            y = torch.nn.functional.conv1d(x.transpose(1, 2), wt, stride=s).transpose(1, 2)
+            y = torch.nn.functional.layer_norm(y, (w.shape[2],), sc, bi, 1e-5)
+            return torch.nn.functional.gelu(y, approximate="tanh" if approx else "none")
+
+        b, by = conv_bound(x, w, ref.shape[1])
+        r = dict(kernel="fused_conv_ln_gelu", layer=i, gelu="tanh" if approx else "erf",
+                 x=list(x.shape), k=k, s=s, dtype=str(x.dtype).replace("torch.", ""),
+                 tensor_cores=conv.uses_tensor_cores(x.dtype, x.shape[2], w.shape[2]),
+                 max_abs_err=err,
+                 ms=time_ms(lambda: conv.fused_conv_ln_gelu(x, w, scale, bias, k, s,
+                                                            approx_gelu=approx), iters=10),
+                 plain_ms=time_ms(lambda: conv.fused_conv_ln_gelu_reference(
+                     x, w, scale, bias, k, s, approx), iters=3, warmup=1),
+                 library_ms=time_ms(library, iters=10), bound_ms=b, bound_by=by)
+    return r, ref
+
+
+def run_conv_phase(enc_sd, wav: torch.Tensor, wav_mask: torch.Tensor) -> dict:
+    """Phase 6: each conv layer vs plain, then the front end through the
+    kernel (its path) vs the port's ConvFeatureExtractor."""
+    layers = EncoderConfig().conv_feature_layers
+    front = {k[len("local_encoder."):]: v.cuda() for k, v in enc_sd.items()
+             if k.startswith("local_encoder.")}
+    x0 = normalize_wav(wav, wav_mask)[:, :, None]
+    rows = []
+    x = x0.to(torch.bfloat16)
+    for i, (_dim, k, s) in enumerate(layers):
+        w, scale, bias = conv.conv_layer_params(front, i, torch.bfloat16)
+        for approx in ((False,) if i == 0 else (False, True)):
+            r, ref = conv_case(i, x, w, scale, bias, k, s, approx)
+            rows.append(r)
+            print("kernel: " + json.dumps(r), flush=True)
+            if not approx:
+                nxt = ref
+        x = nxt
+        del ref
+
+    stack = {}
+    for dtype, n in ((torch.bfloat16, TRAIN_B), (torch.float32, 16)):
+        module = ConvFeatureExtractor(layers, dtype=dtype).cuda()
+        module.load_state_dict(front)
+        xin = x0[:n].to(dtype)
+        w0, scale0, bias0 = conv.conv_layer_params(front, 0, dtype)
+        with torch.no_grad():
+            conv.fused_conv_ln_gelu.launches = 0
+            out = conv.pallas_conv_stack(
+                conv.fused_conv_ln_gelu(xin, w0, scale0, bias0, layers[0][1], layers[0][2]),
+                front, layers)
+            torch.cuda.synchronize()
+            launches = conv.fused_conv_ln_gelu.launches
+            ref = module(xin[:, :, 0])
+        if launches != len(layers):
+            raise AssertionError(f"front end through the kernel: {launches} launches, "
+                                 f"expected {len(layers)}")
+        diff = (out.float() - ref.float()).abs()
+        mean = float(diff.mean())
+        if (not torch.isfinite(out).all() or float(diff.max()) > STACK_TOL[dtype]
+                or (dtype == torch.bfloat16 and mean > STACK_MEAN_TOL_BF16)):
+            raise AssertionError(f"front end through the kernel vs ConvFeatureExtractor "
+                                 f"({dtype}): max |diff| {float(diff.max()):.3e}, "
+                                 f"mean {mean:.3e}")
+        stack[str(dtype).replace("torch.", "")] = dict(
+            launches=launches, max_abs_diff=float(diff.max()), mean_abs_diff=mean,
+            shape=list(out.shape))
+        del module, out, ref, diff
+    print("conv: front end through the kernel vs ConvFeatureExtractor: "
+          + json.dumps(stack) + f" (tolerance {STACK_TOL}, bf16 mean {STACK_MEAN_TOL_BF16})",
+          flush=True)
+    torch.cuda.empty_cache()
+    return dict(rows=rows, launches=stack["bfloat16"]["launches"])
+
+
+def training_batches():
+    """bench.py's batches, N(0, 0.1) wavs of 4 s: a labelled clean stream,
+    an unlabelled noisy stream whose last row is a filler row."""
+    rng = np.random.default_rng(0)
+    B, T = TRAIN_B, TRAIN_T
+
+    def wav():
+        return torch.from_numpy((rng.normal(size=(B, T)) * 0.1).astype(np.float32)).cuda()
+
+    clean = FusedBatch(wav=wav(), wav_mask=torch.zeros(B, T, dtype=torch.bool, device="cuda"),
+                       labels=torch.from_numpy(rng.integers(0, 4, B)).cuda(),
+                       row_valid=torch.ones(B, dtype=torch.bool, device="cuda"))
+    noisy_wav, noisy_mask = wav(), torch.zeros(B, T, dtype=torch.bool, device="cuda")
+    noisy_wav[-1] = 0.0
+    noisy_mask[-1] = True
+    row_valid = torch.ones(B, dtype=torch.bool, device="cuda")
+    row_valid[-1] = False
+    noisy = FusedBatch(wav=noisy_wav, wav_mask=noisy_mask,
+                       labels=torch.full((B,), -1, device="cuda"), row_valid=row_valid)
+    return clean, noisy
+
+
+# kernel-name fragments -> layer of the training step, for the profile
+STEP_GROUPS = (
+    ("attention kernel", ("attn_fwd",)),
+    ("convolution", ("fprop", "conv", "cudnn", "dgrad", "wgrad")),
+    ("matmul", ("gemm", "nvjet", "cutlass", "cublas")),
+    ("layer norm", ("norm",)),
+    ("gelu", ("gelu",)),
+    ("softmax", ("softmax",)),
+    ("random draws", ("philox", "normal", "uniform", "random")),
+    ("reductions", ("reduce",)),
+    ("copy / cast / transpose", ("copy", "cast", "transpose", "cat")),
+)
+
+
+def profile_step(fn) -> dict:
+    """torch.profiler over one call: device time by group, top kernels, the
+    launch count and the device's busy share of the call's wall time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels, launches = {}, 0
+    for ev in prof.key_averages():
+        if ev.device_type == torch.autograd.DeviceType.CUDA:
+            kernels[ev.key] = kernels.get(ev.key, 0.0) + ev.self_device_time_total / 1e3
+            launches += ev.count
+    device_ms = sum(kernels.values())
+    groups = {}
+    for name, ms in kernels.items():
+        low = name.lower()
+        group = next((g for g, keys in STEP_GROUPS if any(k in low for k in keys)),
+                     "other elementwise")
+        groups[group] = groups.get(group, 0.0) + ms
+    top = sorted(kernels.items(), key=lambda kv: -kv[1])[:12]
+    return dict(wall_ms=wall_ms, device_ms=device_ms, device_kernels=launches,
+                device_busy_share=device_ms / wall_ms if wall_ms else None,
+                by_group_ms=dict(sorted(groups.items(), key=lambda kv: -kv[1])),
+                top_kernels_ms=[(name[:90], ms) for name, ms in top])
+
+
+def compare_paths(ends, lr: float) -> dict:
+    """Checks two (state, metrics) ends of the same steps, kernel path
+    first: metrics, student, DACP state and the tracked certainty scores
+    within their tolerances, the filler row's score exactly equal."""
+    (sk, mk), (sp, mp) = ends
+    out = dict(metrics={k: [float(mk[k]), float(mp[k])] for k in mk if k != "tracking"})
+    errors = []
+    for k, (a, b) in out["metrics"].items():
+        if abs(a - b) > METRIC_TOL * (1 + abs(b)):
+            errors.append(f"{k}: {a} vs {b}")
+    student = max(float((sk.ssrl.student[k] - sp.ssrl.student[k]).abs().max())
+                  for k in sk.ssrl.student)
+    student_tol = COMPARE_STEPS * 2 * ADAM_STEP_BOUND * lr
+    if student > student_tol:
+        errors.append(f"student max |diff| {student:.3e} > {student_tol:.3e}")
+    dacp = max(float((getattr(sk.dacp, f) - getattr(sp.dacp, f)).abs().max())
+               for f in sk.dacp._fields)
+    if dacp > DACP_TOL:
+        errors.append(f"DACP state max |diff| {dacp:.3e} > {DACP_TOL}")
+    sc_k, sc_p = mk["tracking"]["certainty_score"], mp["tracking"]["certainty_score"]
+    valid = sc_k.new_ones(sc_k.shape, dtype=torch.bool)
+    valid[-1] = False
+    scores = float((sc_k - sc_p).abs()[valid].max())
+    if scores > DACP_TOL:
+        errors.append(f"certainty scores max |diff| {scores:.3e} > {DACP_TOL}")
+    if float(sc_k[-1]) != float(sc_p[-1]):
+        errors.append(f"filler row score {float(sc_k[-1])} vs {float(sc_p[-1])}")
+    if errors:
+        raise AssertionError("kernel vs plain attention path: " + "; ".join(errors))
+    out.update(student_max_diff=student, student_tol=student_tol, dacp_max_diff=dacp,
+               score_max_diff=scores, filler_score=float(sc_k[-1]))
+    return out
+
+
+def run_training_slice(enc_sd, clean: FusedBatch, noisy: FusedBatch) -> dict:
+    """Phase 7: the fused extract+train step at bench.py's configuration."""
+    dad_cfg = dad_preset("iemocap", batch_size=TRAIN_B, warmup_epochs=1, ecda_start_epoch=1,
+                         epochs=500)
+
+    def cfg_for(flash: bool) -> FusedConfig:
+        enc_cfg = EncoderConfig(dtype="bfloat16", gelu_approximate=True,
+                                use_flash_attention=flash)
+        return FusedConfig(encoder=enc_cfg, dad=dad_cfg, inject_snr_db=10.0,
+                           cache_clean_features=True)
+
+    cfg = cfg_for(True)
+    encoder, head, tx, state0 = init_fused(cfg, enc_sd, torch.Generator().manual_seed(1),
+                                           device="cuda")
+    step = make_fused_extract_train_step(encoder, head, tx, cfg)
+    scalars = StepScalars.for_epoch(dad_cfg, 40)
+    anchors = torch.zeros(4, device="cuda")
+    blocks = cfg.encoder.prenet_depth + cfg.encoder.depth
+
+    attention.flash_attention.launches = 0
+    t0 = time.perf_counter()
+    clean_f = precompute_clean_features(encoder, cfg, clean)
+    torch.cuda.synchronize()
+    precompute_s = time.perf_counter() - t0
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    state, history, times = state0, [], []
+    for _ in range(TRAIN_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, metrics = step(state, clean_f, noisy, scalars, anchors, gen)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        history.append(metrics)
+    launches = attention.flash_attention.launches
+    if launches != blocks * (1 + TRAIN_STEPS):
+        raise AssertionError(f"attention launches {launches} != {blocks} x (1 clean "
+                             f"precompute + {TRAIN_STEPS} noisy extractions)")
+    losses = torch.stack([torch.stack([m[k] for k in sorted(m)]) for m in history]).cpu()
+    if not torch.isfinite(losses).all():
+        raise AssertionError(f"non-finite training metrics: {losses}")
+    for role in ("student", "teacher"):
+        before, after = getattr(state0.ssrl, role), getattr(state.ssrl, role)
+        moved = max(float((after[k] - before[k]).abs().max()) for k in before)
+        if not moved > 0:
+            raise AssertionError(f"the {role} did not move in {TRAIN_STEPS} post-warmup steps")
+    ms_step = float(np.median(times[2:]))
+    print(f"train: clean precompute {precompute_s * 1e3:.1f} ms; {TRAIN_STEPS} steps, "
+          f"median {ms_step:.2f} ms/step (first {times[0]:.1f} ms), "
+          f"{2 * TRAIN_B * 1e3 / ms_step:.1f} training clips/s (2 x {TRAIN_B} per step); "
+          f"attention launches {launches} ({blocks} per extraction)", flush=True)
+    print("train: metrics of the last step " + json.dumps(
+        {k: float(v) for k, v in history[-1].items()}), flush=True)
+    print("profile: train step " + json.dumps(profile_step(
+        lambda: step(state, clean_f, noisy, scalars, anchors, gen))), flush=True)
+
+    # 3 steps through the kernel and through the plain attention path, from
+    # the same state with the same generator seed: at bench.py's DACP
+    # settings, and with DACP opened so that the noisy stream reaches the
+    # loss through the consistency and ECDA terms
+    plain_cfg = cfg_for(False)
+    plain_encoder, _, _, _ = init_fused(plain_cfg, enc_sd, device="cuda")
+    tracked = noisy._replace(ids=torch.arange(TRAIN_B, device="cuda"))
+    for label, dad in (("bench DACP", dad_cfg),
+                       ("DACP open", dataclasses.replace(dad_cfg, dacp=dataclasses.replace(
+                           dad_cfg.dacp, **DACP_OPEN)))):
+        ends = []
+        for enc, c in ((encoder, cfg), (plain_encoder, plain_cfg)):
+            fn = make_fused_extract_train_step(enc, head, tx, dataclasses.replace(c, dad=dad))
+            g, s = torch.Generator(device="cuda").manual_seed(123), state
+            for _ in range(COMPARE_STEPS):
+                s, m = fn(s, clean_f, tracked, scalars, anchors, g)
+            ends.append((s, m))
+        report = compare_paths(ends, float(state.opt_state.learning_rate))
+        losses = report["metrics"]
+        if dad is not dad_cfg and not (losses["consistency_loss"][0] > 0
+                                       and losses["ecda_loss"][0] > 0):
+            raise AssertionError(f"DACP open: the consistency and ECDA terms stayed 0: {losses}")
+        print(f"train: kernel vs plain attention path, {label}, {COMPARE_STEPS} steps from one "
+              f"state and seed, filler row in the noisy batch: " + json.dumps(report),
+              flush=True)
+
+    # the filler row: the kernel writes 0 where the plain path averages v;
+    # its features differ, and nothing downstream reads them
+    with torch.no_grad():
+        fk, fmask = extract(encoder, cfg, noisy.wav, noisy.wav_mask)
+        fp, _ = extract(plain_encoder, plain_cfg, noisy.wav, noisy.wav_mask)
+    valid = ~fmask
+    filler = dict(
+        valid_rows_max_diff=float((fk - fp).abs()[valid].max()),
+        filler_row_max_diff=float((fk[-1] - fp[-1]).abs().max()),
+        filler_row_finite=bool(torch.isfinite(fk[-1]).all()),
+    )
+    if not filler["filler_row_finite"]:
+        raise AssertionError("the filler row's features are not finite on the kernel path")
+    print("train: noisy features, kernel vs plain attention path: " + json.dumps(filler),
+          flush=True)
+    del plain_encoder
+    return dict(launches=launches, ms_step=ms_step)
+
+
+T_START = time.perf_counter()
 
 
 def main() -> int:
@@ -429,22 +930,40 @@ def main() -> int:
             results[(dtype, N)] = r
             print("kernel: " + json.dumps(r), flush=True)
 
-    slice_info = run_slice()
+    # the fused step's attention shape: B = 64 clips of 4 s (199 frames)
+    step_attn = check_attention_kernel(199, torch.bfloat16, B=TRAIN_B)
+    print("kernel: " + json.dumps(step_attn), flush=True)
 
-    main_shape = results[(torch.bfloat16, 1499)]
-    kernels = [dict(
-        name="flash_attention",
-        route="cuda",
-        source=f"{PORT_PKG}/csrc/attention.cu",
-        replaces=f"{PORT_PKG[: -len('_torch')]}/ops/attention.py:28",
-        launches=slice_info["launches"],
-        max_abs_err=main_shape["max_abs_err"],
-        ms=main_shape["ms"],
-        plain_ms=main_shape["plain_ms"],
-        bound_ms=main_shape["bound_ms"],
-        bound_by=main_shape["bound_by"],
-        library_ms=main_shape["library_ms"],
-    )]
+    slice_info = run_slice()
+    norm = run_norm_phase()
+    clean, noisy = training_batches()
+    conv_info = run_conv_phase(slice_info["enc_sd"], noisy.wav, noisy.wav_mask)
+    train = run_training_slice(slice_info["enc_sd"], clean, noisy)
+
+    def entry(name, source, replaces, launches, r):
+        return dict(name=name, route="cuda", source=f"{PORT_PKG}/csrc/{source}",
+                    replaces=replaces, launches=launches,
+                    **{k: r[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                                         "bound_by", "library_ms")})
+
+    # the conv kernel over the whole front end: each layer once (erf GELU)
+    erf_rows = [r for r in conv_info["rows"] if r["gelu"] == "erf"]
+    front = {k: sum(r[k] for r in erf_rows)
+             for k in ("ms", "plain_ms", "bound_ms", "library_ms")}
+    front["max_abs_err"] = max(r["max_abs_err"] for r in erf_rows)
+    ops_bound = sum(r["bound_ms"] for r in erf_rows if r["bound_by"] == "operations")
+    front["bound_by"] = "operations" if ops_bound > front["bound_ms"] / 2 else "bytes"
+    kernels = [
+        entry("flash_attention", "attention.cu", f"{JAX_PKG}/ops/attention.py:28",
+              slice_info["launches"] + train["launches"], step_attn),
+        entry("fused_layernorm", "fused_norm.cu", f"{JAX_PKG}/ops/fused_norm.py:44",
+              norm["launches"]["fused_layernorm"], norm["rows"][("ln_gelu", torch.bfloat16)]),
+        entry("fused_conv_ln_gelu", "conv.cu", f"{JAX_PKG}/ops/conv.py:86",
+              conv_info["launches"], front),
+        entry("copy_rows", "fused_norm.cu", "tools/bench_fused_norm.py:133",
+              norm["launches"]["copy_rows"], norm["rows"]["copy"]),
+    ]
+    print(f"total: {time.perf_counter() - T_START:.1f} s", flush=True)
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -1,6 +1,15 @@
 from .emotion2vec import Emotion2vecEncoder, extract_features, normalize_wav
 from .extract import FeatureExtractor
-from .heads import DADClassifier, DADEncoder, DADHead, SSRLState
+from .heads import (
+    DADClassifier,
+    DADEncoder,
+    DADHead,
+    PretrainHead,
+    SSRLState,
+    ema_update,
+    init_ssrl,
+    load_pretrain_into_ssrl,
+)
 
 __all__ = [
     "Emotion2vecEncoder",
@@ -10,5 +19,9 @@ __all__ = [
     "DADClassifier",
     "DADEncoder",
     "DADHead",
+    "PretrainHead",
     "SSRLState",
+    "ema_update",
+    "init_ssrl",
+    "load_pretrain_into_ssrl",
 ]

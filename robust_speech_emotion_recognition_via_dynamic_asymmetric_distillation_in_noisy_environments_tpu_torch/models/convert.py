@@ -13,6 +13,9 @@
 - DAD SSRL checkpoints: ``student_encoder.pre_net.*`` /
   ``student_classifier.fc_layer.*`` (and ``teacher_*``) -> ``SSRLState``
   of two ``DADHead`` state dicts.
+- ``flax_train_state_to_torch``: a JAX ``DADTrainState`` (numpy leaves)
+  -> the port's, optimizer and DACP state included, so both frameworks can
+  start from one state.
 """
 
 from __future__ import annotations
@@ -204,4 +207,44 @@ def torch_state_dict_to_ssrl(sd: Mapping[str, Any]) -> SSRLState:
         return {k: _t(sd[f"{role}_{k}"]).float() for k in _HEAD_KEYS}
 
     return SSRLState(student=one("student"), teacher=one("teacher"))
+
+
+# ---------------------------------------------------------------------------
+# DAD train state (JAX DADTrainState with numpy leaves -> the port's)
+# ---------------------------------------------------------------------------
+
+
+def flax_train_state_to_torch(state: Any, device=None):
+    """The JAX package's ``DADTrainState`` (leaves as numpy arrays, e.g.
+    ``jax.tree.map(np.asarray, state)``) -> the port's ``DADTrainState``.
+
+    - student / teacher: flax ``DADHead`` trees -> state dicts (kernels
+      (in, out) -> weights (out, in));
+    - the optax state: Adam's (count, mu, nu) from the chain's inner
+      states and the injected learning rate -> ``AdamState``;
+    - ``DACPState`` field by field.
+
+    Read by attribute, so no JAX type is needed here."""
+    from ..dad.dacp import DACPState
+    from ..dad.train_step import AdamState, DADTrainState
+
+    def tree(t):
+        return {k: v.to(device) for k, v in flax_encoder_to_torch(t).items()}
+
+    def tensor(x, dtype):
+        return torch.as_tensor(np.asarray(x), dtype=dtype, device=device)
+
+    opt = state.opt_state
+    adam = next(s for s in opt.inner_state if hasattr(s, "mu") and hasattr(s, "nu"))
+    return DADTrainState(
+        ssrl=SSRLState(student=tree(state.ssrl.student), teacher=tree(state.ssrl.teacher)),
+        opt_state=AdamState(
+            count=tensor(adam.count, torch.int32),
+            mu=tree(adam.mu),
+            nu=tree(adam.nu),
+            learning_rate=tensor(opt.hyperparams["learning_rate"], torch.float32),
+        ),
+        dacp=DACPState(*(tensor(getattr(state.dacp, f), torch.float32)
+                         for f in DACPState._fields)),
+    )
 

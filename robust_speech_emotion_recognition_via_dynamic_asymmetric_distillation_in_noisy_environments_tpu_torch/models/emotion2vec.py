@@ -5,8 +5,9 @@
         -> prenet LN + 4 AltBlocks (post-LN)
         -> 8 AltBlocks (post-LN)
 
-Inference only: ``deterministic=False`` (dropout, layerdrop) waits for the
-training slice and raises. ``normalize_wav`` is the waveform layer norm the
+Forward without dropout: serving and the DAD step run the encoder frozen;
+``deterministic=False`` (dropout, layerdrop) belongs to d2v pretraining, not
+ported yet, and raises. ``normalize_wav`` is the waveform layer norm the
 extraction CLI applies before the encoder.
 """
 

@@ -19,8 +19,10 @@ convolutions, not Pallas kernels. Attention routes to the hand-written
 kernel (``ops/attention.py``) when ``use_flash`` asks for it.
 
 Branches the shipped config never takes (cosine attention, alibi, layerdrop,
-``layer_norm_first=True``) and training-mode dropout are not ported yet and
-raise ``NotImplementedError``.
+``layer_norm_first=True``) are not ported yet and raise
+``NotImplementedError``. The encoder has no training-mode dropout here: it
+runs frozen in the DAD step, and only d2v pretraining (not ported yet)
+trains it.
 """
 
 from __future__ import annotations
@@ -241,7 +243,7 @@ class PositionalConv(nn.Module):
 
 
 class Mlp(nn.Module):
-    """timm-style MLP: fc1 -> GELU -> fc2 (dropout: training slice)."""
+    """timm-style MLP: fc1 -> GELU -> fc2 (no dropout: the encoder is frozen)."""
 
     def __init__(self, dim: int, hidden_dim: int, out_dim: int,
                  dtype: torch.dtype = torch.float32,

@@ -1,6 +1,7 @@
-"""The port's attention wrapper on its own: input checks and the plain
-version on the CPU, and (``cuda`` marker) the Hopper kernel against its
-plain version on the card.
+"""The port's kernel wrappers on their own (attention, fused LayerNorm,
+row copy, conv + LN + GELU): input checks and the plain versions on the
+CPU, and (``cuda`` marker) each Hopper kernel against its plain version on
+the card.
 
 This file imports neither JAX nor the JAX package, so the card tests run
 where JAX is not installed:
@@ -19,6 +20,9 @@ from robust_speech_emotion_recognition_via_dynamic_asymmetric_distillation_in_no
 )
 from robust_speech_emotion_recognition_via_dynamic_asymmetric_distillation_in_noisy_environments_tpu_torch.ops import (
     attention,
+    conv,
+    fused_norm,
+    norm_probe,
 )
 
 # kernel vs plain on items with a valid key: f32 differs by summation order
@@ -149,3 +153,177 @@ def test_encoder_kernel_path_matches_plain_path_on_gpu(cuda_device):
     (a, mask), (b, _) = outs
     valid = ~mask
     torch.testing.assert_close(a[valid], b[valid], atol=1e-4, rtol=1e-4)
+
+
+# fused LN, kernel vs plain: f32 by summation order and rsqrtf (2 ulp);
+# bf16 by one bf16 rounding of outputs of magnitude up to ~4
+LN_TOL = {torch.float32: dict(atol=2e-5, rtol=1e-5),
+          torch.bfloat16: dict(atol=2e-2, rtol=1.6e-2)}
+# conv + LN + GELU, kernel vs plain: both accumulate in f32 (the plain
+# version's f32 matmuls without TF32), so f32 differs by summation order and
+# bf16 by one rounding of the output
+CONV_TOL = LN_TOL
+
+
+def _ln_inputs(shape, dtype, device, seed=0, affine=True, residual=False):
+    g = torch.Generator().manual_seed(seed)
+    C = shape[-1]
+    x = (torch.randn(*shape, generator=g) * 2 + 0.5).to(device, dtype)
+    res = torch.randn(*shape, generator=g).to(device, dtype) if residual else None
+    scale = (torch.randn(C, generator=g) * 0.5 + 1).to(device) if affine else None
+    bias = (torch.randn(C, generator=g) * 0.1).to(device) if affine else None
+    return x, scale, bias, res
+
+
+def _conv_inputs(B, L, c_in, c_out, k, dtype, device, seed=0):
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randn(B, L, c_in, generator=g).to(device, dtype)
+    w = (torch.randn(k, c_in, c_out, generator=g) * (k * c_in) ** -0.5).to(device, dtype)
+    scale = (torch.randn(c_out, generator=g) * 0.2 + 1).to(device)
+    bias = (torch.randn(c_out, generator=g) * 0.1).to(device)
+    return x, w, scale, bias
+
+
+def test_cpu_norm_copy_and_conv_run_plain_versions_without_counting():
+    x, scale, bias, res = _ln_inputs((3, 5, 256), torch.float32, "cpu", residual=True)
+    counts = (fused_norm.fused_layernorm.launches, fused_norm.copy_rows.launches,
+              conv.fused_conv_ln_gelu.launches)
+    y = fused_norm.fused_layernorm(x, scale, bias, residual=res, activation="gelu_tanh")
+    torch.testing.assert_close(y, fused_norm.fused_layernorm_reference(
+        x, scale, bias, res, "gelu_tanh"))
+    assert torch.equal(fused_norm.copy_rows(x), x)
+    xc, w, sc, bi = _conv_inputs(2, 40, 4, 8, 3, torch.float32, "cpu")
+    out = conv.fused_conv_ln_gelu(xc, w, sc, bi, 3, 2)
+    assert out.shape == (2, 19, 8)
+    torch.testing.assert_close(out, conv.fused_conv_ln_gelu_reference(xc, w, sc, bi, 3, 2))
+    assert counts == (fused_norm.fused_layernorm.launches, fused_norm.copy_rows.launches,
+                      conv.fused_conv_ln_gelu.launches)
+
+
+def test_norm_probe_runs_its_cases_on_the_cpu_when_asked():
+    before = fused_norm.fused_layernorm.launches, fused_norm.copy_rows.launches
+    rows = norm_probe.run_probe("cpu", iters=1,
+                                shapes={"res_ln": (2, 3, 256), "ln_gelu": (2, 5, 128)})
+    assert [r["name"] for r in rows] == ["res+LN kernel", "res+LN plain", "LN+GELU kernel",
+                                         "LN+GELU plain", "copy kernel"]
+    assert rows[0]["bytes"] == 3 * 2 * 3 * 256 * 2 and all(r["ms"] > 0 for r in rows)
+    assert (fused_norm.fused_layernorm.launches, fused_norm.copy_rows.launches) == before
+
+
+def test_norm_and_conv_wrappers_reject_what_they_do_not_take():
+    x = torch.zeros(4, 128, device="meta")
+    with pytest.raises(ValueError, match="no fused_norm kernel"):
+        fused_norm.fused_layernorm(x)
+    with pytest.raises(ValueError, match="no copy kernel"):
+        fused_norm.copy_rows(x)
+    with pytest.raises(ValueError, match="multiple of 128"):
+        fused_norm.fused_layernorm(torch.zeros(4, 100))
+    with pytest.raises(ValueError, match="together"):
+        fused_norm.fused_layernorm(torch.zeros(4, 128), scale=torch.ones(128))
+    with pytest.raises(ValueError, match="activation"):
+        fused_norm.fused_layernorm(torch.zeros(4, 128), activation="relu")
+    with pytest.raises(ValueError, match="no conv kernel"):
+        conv.fused_conv_ln_gelu(torch.zeros(1, 8, 1, device="meta"),
+                                torch.zeros(2, 1, 8, device="meta"),
+                                torch.ones(8), torch.zeros(8), 2, 2)
+
+
+def test_conv_reference_matches_conv1d_layer_norm_gelu():
+    """The plain version against torch's own conv1d, layer_norm and exact
+    GELU in float64: the polynomial erf is within 1.5e-7 of erf, so GELU
+    is within |x| * 0.75e-7 of exact, < 1e-6 for these |x|."""
+    x, w, scale, bias = _conv_inputs(2, 61, 3, 16, 4, torch.float64, "cpu")
+    got = conv.fused_conv_ln_gelu_reference(x, w, scale, bias, 4, 3)
+    y = torch.nn.functional.conv1d(x.transpose(1, 2), w.permute(2, 1, 0), stride=3)
+    y = torch.nn.functional.layer_norm(y.transpose(1, 2), (16,), scale.double(),
+                                       bias.double(), 1e-5)
+    torch.testing.assert_close(got, torch.nn.functional.gelu(y), atol=1e-6, rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("shape, affine, residual, act", [
+    ((3, 37, 768), True, True, None),            # the block norm shape, ragged rows
+    ((9, 512), True, False, "gelu_tanh"),        # the conv LN + GELU variant
+    ((5, 128), False, False, None),              # plain LN, one chunk per lane
+    ((2, 3, 2048), True, True, "gelu_tanh"),     # the widest row the kernel takes
+])
+def test_fused_ln_kernel_matches_plain_on_gpu(cuda_device, dtype, shape, affine, residual, act):
+    x, scale, bias, res = _ln_inputs(shape, dtype, cuda_device, affine=affine,
+                                     residual=residual)
+    before = fused_norm.fused_layernorm.launches
+    out = fused_norm.fused_layernorm(x, scale, bias, residual=res, activation=act)
+    torch.cuda.synchronize()
+    assert fused_norm.fused_layernorm.launches == before + 1
+    assert out.dtype == dtype and out.shape == x.shape
+    ref = fused_norm.fused_layernorm_reference(x, scale, bias, res, act)
+    torch.testing.assert_close(out.float(), ref.float(), **LN_TOL[dtype])
+
+
+@pytest.mark.cuda
+def test_fused_ln_backward_on_gpu_matches_cpu(cuda_device):
+    x, scale, bias, res = _ln_inputs((4, 6, 256), torch.float32, "cpu", residual=True)
+    g = torch.randn(4, 6, 256, generator=torch.Generator().manual_seed(1))
+    grads = []
+    for dev in ("cpu", cuda_device):
+        leaves = [t.detach().to(dev).requires_grad_(True) for t in (x, res, scale, bias)]
+        out = fused_norm.fused_layernorm(leaves[0], leaves[2], leaves[3], residual=leaves[1],
+                                         activation="gelu_tanh")
+        (out * g.to(dev)).sum().backward()
+        grads.append([t.grad.cpu() for t in leaves])
+    for got, want in zip(grads[1], grads[0]):
+        torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("numel, dtype", [(64 * 3199 * 512 // 64, torch.bfloat16),
+                                          (1001, torch.bfloat16), (7, torch.float32)])
+def test_copy_kernel_is_exact_on_gpu(cuda_device, numel, dtype):
+    x = torch.randn(numel, generator=torch.Generator().manual_seed(2)).to(cuda_device, dtype)
+    before = fused_norm.copy_rows.launches
+    out = fused_norm.copy_rows(x)
+    torch.cuda.synchronize()
+    assert fused_norm.copy_rows.launches == before + 1
+    assert torch.equal(out, x)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("B, L, c_in, c_out, k, s, approx", [
+    (2, 4000, 1, 512, 10, 5, False),   # layer 0: C_in = 1 (FMA path)
+    (2, 801, 512, 512, 3, 2, False),   # layers 1-4 (tensor cores in bf16), ragged tile
+    (3, 139, 512, 512, 2, 2, True),    # layers 5-6, tanh GELU
+    (2, 97, 8, 8, 3, 2, False),        # the JAX package's test shape (FMA path)
+    (1, 70, 64, 128, 3, 1, True),      # stride 1, C_out 128 (tensor cores in bf16)
+])
+def test_conv_kernel_matches_plain_on_gpu(cuda_device, dtype, B, L, c_in, c_out, k, s, approx):
+    x, w, scale, bias = _conv_inputs(B, L, c_in, c_out, k, dtype, cuda_device, seed=L)
+    before = conv.fused_conv_ln_gelu.launches
+    out = conv.fused_conv_ln_gelu(x, w, scale, bias, k, s, approx_gelu=approx)
+    torch.cuda.synchronize()
+    assert conv.fused_conv_ln_gelu.launches == before + 1
+    assert out.shape == (B, (L - k) // s + 1, c_out) and out.dtype == dtype
+    assert torch.isfinite(out).all()
+    ref = conv.fused_conv_ln_gelu_reference(x, w, scale, bias, k, s, approx)
+    torch.testing.assert_close(out.float(), ref.float(), **CONV_TOL[dtype])
+
+
+@pytest.mark.cuda
+def test_norm_and_conv_kernels_reject_what_they_do_not_take(cuda_device):
+    x, scale, bias, res = _ln_inputs((4, 256), torch.bfloat16, cuda_device, residual=True)
+    with pytest.raises(TypeError, match="bf16 or f32"):
+        fused_norm.fused_layernorm(x.half())
+    with pytest.raises(ValueError, match="contiguous"):
+        fused_norm.fused_layernorm(torch.zeros(256, 4, device=cuda_device).T)
+    with pytest.raises(ValueError, match="does not match"):
+        fused_norm.fused_layernorm(x, scale, bias, residual=res.float())
+    with pytest.raises(ValueError, match="at most"):
+        fused_norm.fused_layernorm(torch.zeros(2, 4096, device=cuda_device))
+    xc, w, sc, bi = _conv_inputs(1, 50, 32, 128, 3, torch.bfloat16, cuda_device)
+    with pytest.raises(ValueError, match="does not match"):
+        conv.fused_conv_ln_gelu(xc, w.float(), sc, bi, 3, 2)
+    with pytest.raises(ValueError, match="contiguous"):
+        conv.fused_conv_ln_gelu(xc.transpose(1, 2).contiguous().transpose(1, 2), w, sc, bi, 3, 2)
+    shifted = torch.empty(xc.numel() + 1, dtype=xc.dtype, device=cuda_device)[1:].view(xc.shape)
+    with pytest.raises(ValueError, match="aligned"):
+        conv.fused_conv_ln_gelu(shifted, w, sc, bi, 3, 2)

@@ -57,7 +57,8 @@ def test_port_sources_never_name_the_jax_package():
     assert not [p for p in (REPO / PORT_PKG).rglob("*.py") if imports.search(p.read_text())]
 
 
-@pytest.mark.parametrize("entry", ["FeatureExtractor", "EmotionPredictor", "cli"])
+@pytest.mark.parametrize("entry", ["FeatureExtractor", "EmotionPredictor", "cli",
+                                   "init_fused", "norm_probe"])
 def test_entry_points_without_device_raise_without_cuda(monkeypatch, entry):
     from robust_speech_emotion_recognition_via_dynamic_asymmetric_distillation_in_noisy_environments_tpu_torch import (
         cli,
@@ -74,9 +75,21 @@ def test_entry_points_without_device_raise_without_cuda(monkeypatch, entry):
         SSRLState,
     )
 
+    from robust_speech_emotion_recognition_via_dynamic_asymmetric_distillation_in_noisy_environments_tpu_torch.ops import (
+        norm_probe,
+    )
+    from robust_speech_emotion_recognition_via_dynamic_asymmetric_distillation_in_noisy_environments_tpu_torch.parallel import (
+        FusedConfig,
+        init_fused,
+    )
+
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
-        if entry == "FeatureExtractor":
+        if entry == "init_fused":
+            init_fused(FusedConfig(), {})
+        elif entry == "norm_probe":
+            norm_probe.run_probe()
+        elif entry == "FeatureExtractor":
             FeatureExtractor(EncoderConfig(embed_dim=16, num_heads=2), {})
         elif entry == "EmotionPredictor":
             EmotionPredictor(dad_preset("iemocap"), SSRLState({}, {}))

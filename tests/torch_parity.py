@@ -47,6 +47,35 @@ def to_torch(flax_params):
     return flax_encoder_to_torch(jax.tree.map(np.asarray, flax_params))
 
 
+def jax_strong_draws(key, shape, padding_mask, aug_cfg):
+    """The draws the JAX ``strong_augment`` takes from ``key``, as the
+    port's ``StrongDraws`` (torch tensors)."""
+    import jax.numpy as jnp
+    import torch
+
+    from robust_speech_emotion_recognition_via_dynamic_asymmetric_distillation_in_noisy_environments_tpu_torch.dad.augment import (
+        StrongDraws,
+    )
+
+    B, T, D = shape
+    k_noise, k_feat, k_time = jax.random.split(key, 3)
+    t_valid = T if padding_mask is None else int(np.max(np.sum(~np.asarray(padding_mask), 1)))
+    mask_len = int(np.floor(np.float32(t_valid) * np.float32(aug_cfg.temporal_mask_ratio)))
+    start = jax.random.randint(k_time, (B,), 0, jnp.maximum(1, t_valid - mask_len + 1))
+    return StrongDraws(
+        noise=torch.from_numpy(np.array(jax.random.normal(k_noise, shape, jnp.float32))),
+        feat_u=torch.from_numpy(np.array(jax.random.uniform(k_feat, (D,)))),
+        start=torch.from_numpy(np.array(start)).long(),
+    )
+
+
+def jax_normal(key, shape):
+    """jax.random.normal(key, shape) as a torch tensor."""
+    import torch
+
+    return torch.from_numpy(np.array(jax.random.normal(key, shape)))
+
+
 def port_cfg(jax_cfg):
     """The port's copy of a JAX-package config dataclass."""
     from robust_speech_emotion_recognition_via_dynamic_asymmetric_distillation_in_noisy_environments_tpu_torch import (
