@@ -29,10 +29,16 @@ Phases (any failure raises and the script exits non-zero without a result):
    torch.profiler breakdown of one batch at the 1 s and 30 s buckets.
 5. fused LN and copy vs plain: the three ``fused_layernorm`` variants at
    the fused step's shapes, bf16 and f32, plus one backward, and
-   ``copy_rows``; each timed beside its plain version, ``F.layer_norm``
-   (+ add / GELU) or ``Tensor.copy_`` and its bound. Then the probe
-   (``ops/norm_probe.py``) runs as the path of these two kernels, with
-   their launch counts read around it.
+   ``copy_rows`` (bf16 and f32); each timed beside its plain version,
+   ``F.layer_norm`` (+ add / GELU) or ``Tensor.copy_`` and its bound. The
+   kernel and its PyTorch call are measured in turns (kernel, library,
+   library, kernel) with ``utils/timing.py``: device ms with cold L2 (CUDA
+   graph replays over a rotation of input sets larger than L2; the ``ms``
+   of the line), device ms with warm L2, call ms (events around eager
+   calls) and host µs per call, with ``nvidia-smi``'s clocks and power
+   sampled beside each case. Then the probe (``ops/norm_probe.py``) runs
+   as the path of these two kernels, with their launch counts read around
+   it.
 6. conv stack vs plain: ``fused_conv_ln_gelu`` per layer of the
    emotion2vec front end at B = 64, 4 s clips, on the encoder's own conv
    weights and the training slice's noisy batch (erf GELU, and tanh for
@@ -61,6 +67,7 @@ import base64
 import concurrent.futures
 import dataclasses
 import json
+import math
 import subprocess
 import sys
 import time
@@ -100,6 +107,9 @@ from robust_speech_emotion_recognition_via_dynamic_asymmetric_distillation_in_no
     cuda_build,
     fused_norm,
     norm_probe,
+)
+from robust_speech_emotion_recognition_via_dynamic_asymmetric_distillation_in_noisy_environments_tpu_torch.utils import (
+    timing,
 )
 from robust_speech_emotion_recognition_via_dynamic_asymmetric_distillation_in_noisy_environments_tpu_torch.parallel import (
     FusedBatch,
@@ -249,20 +259,6 @@ def attention_bound_ms(q: torch.Tensor, mask: torch.Tensor) -> tuple:
     return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
 
 
-def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
-    """Mean device time of one call, from CUDA events around ``iters``."""
-    for _ in range(warmup):
-        fn()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
-
-
 def check_attention_kernel(N: int, dtype: torch.dtype, B: int = 16) -> dict:
     """Kernel vs plain version at (B, 12, N, 64); returns the numbers."""
     q, k, v, mask = attention_inputs(B, 12, N, 64, dtype, seed=N)
@@ -285,9 +281,9 @@ def check_attention_kernel(N: int, dtype: torch.dtype, B: int = 16) -> dict:
     return dict(
         B=B, N=N, dtype=str(dtype).replace("torch.", ""),
         max_abs_err=float(err.max()),
-        ms=time_ms(lambda: attention.flash_attention(q, k, v, mask)),
-        plain_ms=time_ms(lambda: attention.flash_attention_reference(q, k, v, mask)),
-        library_ms=time_ms(lambda: F.scaled_dot_product_attention(
+        ms=timing.call_ms(lambda: attention.flash_attention(q, k, v, mask)),
+        plain_ms=timing.call_ms(lambda: attention.flash_attention_reference(q, k, v, mask)),
+        library_ms=timing.call_ms(lambda: F.scaled_dot_product_attention(
             q, k, v, attn_mask=sdpa_mask, scale=1.0)),
         bound_ms=bound, bound_by=bound_by,
     )
@@ -509,41 +505,84 @@ def max_err(out: torch.Tensor, ref: torch.Tensor, tol: tuple, what: str) -> floa
     return float(err.max())
 
 
-def ln_case(name: str, shape, dtype, residual: bool, gelu: bool, seed: int) -> dict:
-    """One fused_layernorm variant (always affine, as the encoder's LNs)."""
-    g = torch.Generator().manual_seed(seed)
-    C = shape[-1]
-    x = torch.randn(*shape, generator=g).to("cuda", dtype)
-    res = torch.randn(*shape, generator=g).to("cuda", dtype) if residual else None
-    scale = (torch.randn(C, generator=g) * 0.5 + 1).cuda()
-    bias = (torch.randn(C, generator=g) * 0.1).cuda()
+# the measures of phase 5, each taken for the kernel and its PyTorch call in
+# turns (kernel, library, library, kernel): device ms with cold L2 (inputs
+# rotated, the number held to the HBM bound), device ms with warm L2, call ms
+# (events around eager calls, host launch cost included) and host µs per call
+MEASURES = ("device_ms_cold", "device_ms_warm", "call_ms", "host_us")
+
+
+def measure(calls, what: str) -> float:
+    if what == "device_ms_cold":
+        return timing.device_ms(calls, cold=True)
+    if what == "device_ms_warm":
+        return timing.device_ms(calls[:1], cold=False)
+    if what == "call_ms":
+        return timing.call_ms(calls[0])
+    return timing.host_us(calls[0])
+
+
+def in_turns(kernel_calls, library_calls) -> dict:
+    """Every measure of the kernel and of the library call, in the order
+    kernel, library, library, kernel: the mean of each pair, and the four."""
+    out = {}
+    for what in MEASURES:
+        k1, l1 = measure(kernel_calls, what), measure(library_calls, what)
+        l2, k2 = measure(library_calls, what), measure(kernel_calls, what)
+        out[what], out[f"library_{what}"] = (k1 + k2) / 2, (l1 + l2) / 2
+        out[f"{what}_turns"] = [k1, l1, l2, k2]
+    return out
+
+
+def device_randn(shape, dtype, gen: torch.Generator) -> torch.Tensor:
+    return torch.randn(*shape, generator=gen, device="cuda").to(dtype)
+
+
+def ln_case(name: str, shape, dtype, residual: bool, gelu: bool, seed: int,
+            clocks: timing.ClockSampler) -> dict:
+    """One fused_layernorm variant (always affine, as the encoder's LNs)
+    against its plain version, then timed beside F.layer_norm (+ add, +
+    GELU) on a rotation of input sets."""
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    C, numel = shape[-1], math.prod(shape)
+    set_bytes = (2 + residual) * numel * dtype.itemsize
+    sets = [(device_randn(shape, dtype, gen),
+             device_randn(shape, dtype, gen) if residual else None)
+            for _ in range(timing.rotation(set_bytes))]
+    scale = device_randn((C,), torch.float32, gen) * 0.5 + 1
+    bias = device_randn((C,), torch.float32, gen) * 0.1
     act = "gelu_tanh" if gelu else None
+    x, res = sets[0]
     with torch.no_grad():
         out = fused_norm.fused_layernorm(x, scale, bias, residual=res, activation=act)
         torch.cuda.synchronize()
         ref = fused_norm.fused_layernorm_reference(x, scale, bias, res, act)
     err = max_err(out, ref, LN_TOL[dtype], f"fused_layernorm {name} {dtype}")
+    del out, ref
     sc, bi = scale.to(dtype), bias.to(dtype)
 
-    def library():
-        y = torch.nn.functional.layer_norm(x if res is None else x + res, (C,), sc, bi, 1e-6)
-        return torch.nn.functional.gelu(y, approximate="tanh") if gelu else y
+    def kernel(x, res):
+        return lambda: fused_norm.fused_layernorm(x, scale, bias, residual=res, activation=act)
 
-    numel = x.numel()
-    nbytes = (2 + residual) * numel * x.element_size() + 2 * C * 4
+    def library(x, res):
+        def fn():
+            y = F.layer_norm(x if res is None else x + res, (C,), sc, bi, 1e-6)
+            return F.gelu(y, approximate="tanh") if gelu else y
+        return fn
+
     # f32 operations per element: 3 for the sums, 2 to normalise, 2 affine,
     # 1 residual add, 9 tanh-GELU
-    ops = numel * (7 + residual + 9 * gelu)
-    b, by = bound(nbytes, ops, F32_OPS_PER_S)
+    b, by = bound(set_bytes + 2 * C * 4, numel * (7 + residual + 9 * gelu), F32_OPS_PER_S)
     with torch.no_grad():
-        return dict(
-            kernel="fused_layernorm", case=name, shape=list(shape),
-            dtype=str(dtype).replace("torch.", ""), max_abs_err=err,
-            ms=time_ms(lambda: fused_norm.fused_layernorm(x, scale, bias, residual=res,
-                                                          activation=act)),
-            plain_ms=time_ms(lambda: fused_norm.fused_layernorm_reference(x, scale, bias,
-                                                                          res, act)),
-            library_ms=time_ms(library), bound_ms=b, bound_by=by)
+        times = in_turns([kernel(*s) for s in sets], [library(*s) for s in sets])
+        plain = timing.call_ms(lambda: fused_norm.fused_layernorm_reference(x, scale, bias,
+                                                                            res, act))
+    return dict(kernel="fused_layernorm", case=name, shape=list(shape),
+                dtype=str(dtype).replace("torch.", ""), max_abs_err=err,
+                ms=times["device_ms_cold"], library_ms=times["library_device_ms_cold"],
+                plain_ms=plain, bound_ms=b, bound_by=by, rotation=len(sets), **times,
+                clocks=clocks.summary(t0, time.perf_counter()))
 
 
 def check_ln_backward() -> float:
@@ -567,47 +606,62 @@ def check_ln_backward() -> float:
                for a, b, name in zip(grads[0], grads[1], ("x", "residual", "scale", "bias")))
 
 
-def check_copy() -> dict:
-    x = torch.randn(TRAIN_B * 3199, 512, generator=torch.Generator().manual_seed(8)).to(
-        "cuda", torch.bfloat16)
-    out = fused_norm.copy_rows(x)
+def copy_case(dtype, clocks: timing.ClockSampler) -> dict:
+    """copy_rows at the probe's shape: bit-exact, then timed beside
+    Tensor.copy_ into a preallocated output on a rotation of buffers."""
+    t0 = time.perf_counter()
+    shape = (TRAIN_B * 3199, 512)
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    nbytes = math.prod(shape) * dtype.itemsize
+    srcs = [device_randn(shape, dtype, gen) for _ in range(timing.rotation(2 * nbytes))]
+    dsts = [torch.empty_like(s) for s in srcs]
+    out = fused_norm.copy_rows(srcs[0])
     torch.cuda.synchronize()
-    if not torch.equal(out, x):
-        raise AssertionError("copy kernel: the copy differs from its source")
-    dst = torch.empty_like(x)
-    b, by = bound(2 * x.numel() * x.element_size(), 0, F32_OPS_PER_S)
-    return dict(kernel="copy_rows", shape=list(x.shape), dtype="bfloat16", max_abs_err=0.0,
-                ms=time_ms(lambda: fused_norm.copy_rows(x)), plain_ms=time_ms(x.clone),
-                library_ms=time_ms(lambda: dst.copy_(x)), bound_ms=b, bound_by=by)
+    if not torch.equal(out, srcs[0]):
+        raise AssertionError(f"copy kernel: the copy differs from its source ({dtype})")
+    del out
+    b, by = bound(2 * nbytes, 0, F32_OPS_PER_S)
+    times = in_turns([lambda s=s: fused_norm.copy_rows(s) for s in srcs],
+                     [lambda s=s, d=d: d.copy_(s) for s, d in zip(srcs, dsts)])
+    return dict(kernel="copy_rows", shape=list(shape), dtype=str(dtype).replace("torch.", ""),
+                max_abs_err=0.0, ms=times["device_ms_cold"],
+                library_ms=times["library_device_ms_cold"],
+                plain_ms=timing.call_ms(srcs[0].clone), bound_ms=b, bound_by=by,
+                rotation=len(srcs), **times, clocks=clocks.summary(t0, time.perf_counter()))
 
 
 def run_norm_phase() -> dict:
-    """Phase 5: fused LN and copy vs plain, then the probe as their path."""
+    """Phase 5: fused LN and copy vs plain and timed beside their PyTorch
+    calls, with the card's clocks sampled; then the probe as their path."""
     rows = {}
     shapes = {"res_ln": (TRAIN_B, 199, 768), "ln": (TRAIN_B, 199, 768),
               "ln_gelu": (TRAIN_B, 3199, 512)}
-    for dtype in (torch.bfloat16, torch.float32):
-        for i, (name, shape) in enumerate(shapes.items()):
-            r = ln_case(name, shape, dtype, residual=name == "res_ln",
-                        gelu=name == "ln_gelu", seed=10 + i)
-            rows[(name, dtype)] = r
-            print("kernel: " + json.dumps(r), flush=True)
-    grad_err = check_ln_backward()
-    print(f"kernel: fused_layernorm backward (bf16, residual, gelu_tanh) vs autograd "
-          f"through the plain ops: max |diff| {grad_err:.3e} (tolerance {LN_GRAD_TOL})",
-          flush=True)
-    rows["copy"] = check_copy()
-    print("kernel: " + json.dumps(rows["copy"]), flush=True)
+    with timing.ClockSampler(gpu=torch.cuda.current_device()) as clocks:
+        for dtype in (torch.bfloat16, torch.float32):
+            for i, (name, shape) in enumerate(shapes.items()):
+                r = ln_case(name, shape, dtype, residual=name == "res_ln",
+                            gelu=name == "ln_gelu", seed=10 + i, clocks=clocks)
+                rows[(name, dtype)] = r
+                print("kernel: " + json.dumps(r), flush=True)
+        grad_err = check_ln_backward()
+        print(f"kernel: fused_layernorm backward (bf16, residual, gelu_tanh) vs autograd "
+              f"through the plain ops: max |diff| {grad_err:.3e} (tolerance {LN_GRAD_TOL})",
+              flush=True)
+        for dtype in (torch.bfloat16, torch.float32):
+            rows[("copy", dtype)] = copy_case(dtype, clocks)
+            print("kernel: " + json.dumps(rows[("copy", dtype)]), flush=True)
+        torch.cuda.empty_cache()
 
-    fused_norm.fused_layernorm.launches = fused_norm.copy_rows.launches = 0
-    probe = norm_probe.run_probe("cuda", iters=20)
-    launches = dict(fused_layernorm=fused_norm.fused_layernorm.launches,
-                    copy_rows=fused_norm.copy_rows.launches)
+        fused_norm.fused_layernorm.launches = fused_norm.copy_rows.launches = 0
+        probe = norm_probe.run_probe("cuda", iters=20)
+        launches = dict(fused_layernorm=fused_norm.fused_layernorm.launches,
+                        copy_rows=fused_norm.copy_rows.launches)
     for row in probe:
         print("probe: " + json.dumps(row), flush=True)
     if not all(launches.values()):
         raise AssertionError(f"the probe did not launch every kernel of its path: {launches}")
-    print(f"probe: launches {launches}", flush=True)
+    print(f"probe: launches {launches}; clocks over the phase {clocks.summary()}", flush=True)
+    torch.cuda.empty_cache()
     return dict(rows=rows, launches=launches)
 
 
@@ -641,11 +695,11 @@ def conv_case(i: int, x, w, scale, bias, k, s, approx: bool) -> tuple:
                  x=list(x.shape), k=k, s=s, dtype=str(x.dtype).replace("torch.", ""),
                  tensor_cores=conv.uses_tensor_cores(x.dtype, x.shape[2], w.shape[2]),
                  max_abs_err=err,
-                 ms=time_ms(lambda: conv.fused_conv_ln_gelu(x, w, scale, bias, k, s,
-                                                            approx_gelu=approx), iters=10),
-                 plain_ms=time_ms(lambda: conv.fused_conv_ln_gelu_reference(
+                 ms=timing.call_ms(lambda: conv.fused_conv_ln_gelu(x, w, scale, bias, k, s,
+                                                                   approx_gelu=approx), iters=10),
+                 plain_ms=timing.call_ms(lambda: conv.fused_conv_ln_gelu_reference(
                      x, w, scale, bias, k, s, approx), iters=3, warmup=1),
-                 library_ms=time_ms(library, iters=10), bound_ms=b, bound_by=by)
+                 library_ms=timing.call_ms(library, iters=10), bound_ms=b, bound_by=by)
     return r, ref
 
 
@@ -961,7 +1015,7 @@ def main() -> int:
         entry("fused_conv_ln_gelu", "conv.cu", f"{JAX_PKG}/ops/conv.py:86",
               conv_info["launches"], front),
         entry("copy_rows", "fused_norm.cu", "tools/bench_fused_norm.py:133",
-              norm["launches"]["copy_rows"], norm["rows"]["copy"]),
+              norm["launches"]["copy_rows"], norm["rows"][("copy", torch.bfloat16)]),
     ]
     print(f"total: {time.perf_counter() - T_START:.1f} s", flush=True)
     print(smi)

@@ -64,13 +64,26 @@ def fused_layernorm_reference(x, scale=None, bias=None, residual=None, activatio
     return _reference_fwd_f32(x, residual, scale, bias, activation, eps)[0].to(x.dtype)
 
 
+# the LN grid mirrors csrc/fused_norm.cu: blocks of LN_WARPS warps,
+# LN_ROWS_PER_WARP rows a warp
+LN_WARPS = 4
+LN_ROWS_PER_WARP = 2
+
+
+def ln_plan(M: int) -> int:
+    """Blocks of the LN grid for M rows. Warp w of the grid takes rows w,
+    w + W, ... with W = blocks * LN_WARPS: LN_ROWS_PER_WARP rows a warp
+    (fewer for the last warps)."""
+    return max(1, -(-M // (LN_ROWS_PER_WARP * LN_WARPS)))
+
+
 @functools.cache
 def _library() -> ctypes.CDLL:
     """Builds and loads csrc/fused_norm.cu once per process."""
     lib = cuda_build.load("fused_norm")
-    # x, res, scale, bias, out, M, C, dtype, gelu, eps, stream
+    # x, res, scale, bias, out, M, C, dtype, gelu, eps, blocks, stream
     lib.fused_ln_fwd.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 4
-                                 + [ctypes.c_float, ctypes.c_void_p])
+                                 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
     lib.fused_ln_fwd.restype = ctypes.c_int
     lib.copy_rows.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_size_t,
                               ctypes.c_void_p]
@@ -81,12 +94,30 @@ def _library() -> ctypes.CDLL:
 def _check_aligned(name: str, t: torch.Tensor) -> None:
     if not t.is_contiguous():
         raise ValueError(f"fused_norm kernel needs contiguous {name}")
-    if t.data_ptr() % 16:  # 16-byte vectors (f32), 8-byte (bf16)
+    if t.data_ptr() % 16:  # 16-byte vectors and bulk copies
         raise ValueError(f"fused_norm kernel needs 16-byte aligned {name}")
 
 
-def _stream(device: torch.device) -> int:
-    return torch.cuda.current_stream(device).cuda_stream
+def _launch(fn, device: int, *args) -> int:
+    """Calls a kernel's C entry on ``device``'s current stream (its raw
+    handle, without building a Stream object), switching the current device
+    only when it differs."""
+    if device == torch.cuda.current_device():
+        return fn(*args, torch._C._cuda_getCurrentRawStream(device))
+    with torch.cuda.device(device):
+        return fn(*args, torch._C._cuda_getCurrentRawStream(device))
+
+
+def _affine(t: torch.Tensor, name: str, C: int, device: torch.device) -> torch.Tensor:
+    """scale or bias as the kernel reads it: (C,) f32, contiguous, aligned
+    (a copy only where the caller's tensor is not that already)."""
+    if t.shape != (C,) or t.device != device:
+        raise ValueError(f"{name} must be ({C},) on {device}, got {tuple(t.shape)} on {t.device}")
+    if t.dtype != torch.float32 or not t.is_contiguous():
+        t = t.float().contiguous()
+    if t.data_ptr() % 16:
+        raise ValueError(f"fused_norm kernel needs 16-byte aligned {name}")
+    return t
 
 
 def _launch_ln(x, residual, scale, bias, activation, eps) -> torch.Tensor:
@@ -96,30 +127,26 @@ def _launch_ln(x, residual, scale, bias, activation, eps) -> torch.Tensor:
     C = x.shape[-1]
     if C > MAX_FEATURES:
         raise ValueError(f"fused_norm kernel takes at most {MAX_FEATURES} features, got {C}")
+    device = x.device
     _check_aligned("x", x)
+    res_ptr = scale_ptr = bias_ptr = None
     if residual is not None:
-        if residual.shape != x.shape or residual.dtype != x.dtype or residual.device != x.device:
+        if residual.shape != x.shape or residual.dtype != x.dtype or residual.device != device:
             raise ValueError(
                 f"residual {tuple(residual.shape)} {residual.dtype} {residual.device} does not "
-                f"match x {tuple(x.shape)} {x.dtype} {x.device}")
+                f"match x {tuple(x.shape)} {x.dtype} {device}")
         _check_aligned("residual", residual)
+        res_ptr = residual.data_ptr()
     if scale is not None:
-        for name, t in (("scale", scale), ("bias", bias)):
-            if t.shape != (C,) or t.device != x.device:
-                raise ValueError(f"{name} must be ({C},) on {x.device}, got "
-                                 f"{tuple(t.shape)} on {t.device}")
-        scale, bias = scale.float().contiguous(), bias.float().contiguous()
+        scale, bias = _affine(scale, "scale", C, device), _affine(bias, "bias", C, device)
+        scale_ptr, bias_ptr = scale.data_ptr(), bias.data_ptr()
     out = torch.empty_like(x)
     M = x.numel() // C
     if M == 0:
         return out
-    with torch.cuda.device(x.device):
-        err = _library().fused_ln_fwd(
-            x.data_ptr(), None if residual is None else residual.data_ptr(),
-            None if scale is None else scale.data_ptr(),
-            None if bias is None else bias.data_ptr(),
-            out.data_ptr(), M, C, int(x.dtype == torch.bfloat16),
-            int(activation == "gelu_tanh"), eps, _stream(x.device))
+    err = _launch(_library().fused_ln_fwd, device.index, x.data_ptr(), res_ptr, scale_ptr,
+                  bias_ptr, out.data_ptr(), M, C, int(x.dtype == torch.bfloat16),
+                  int(activation == "gelu_tanh"), eps, ln_plan(M))
     if err != 0:
         raise RuntimeError(f"fused_norm kernel launch failed: CUDA error {err}")
     fused_layernorm.launches += 1
@@ -183,7 +210,10 @@ def fused_layernorm(
         raise ValueError("scale and bias must be given together")
     if x.shape[-1] % 128 != 0:
         raise ValueError(f"feature dim {x.shape[-1]} must be a multiple of 128")
-    return _FusedLayerNorm.apply(x, residual, scale, bias, activation, eps)
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in (x, residual, scale, bias)):
+        return _FusedLayerNorm.apply(x, residual, scale, bias, activation, eps)
+    return _forward(x, residual, scale, bias, activation, eps)  # no graph to record
 
 
 fused_layernorm.launches = 0  # kernel launches, for checks that a path ran it
@@ -202,8 +232,7 @@ def copy_rows(x: torch.Tensor) -> torch.Tensor:
     nbytes = x.numel() * x.element_size()
     if nbytes == 0:
         return out
-    with torch.cuda.device(x.device):
-        err = _library().copy_rows(x.data_ptr(), out.data_ptr(), nbytes, _stream(x.device))
+    err = _launch(_library().copy_rows, x.device.index, x.data_ptr(), out.data_ptr(), nbytes)
     if err != 0:
         raise RuntimeError(f"copy kernel launch failed: CUDA error {err}")
     copy_rows.launches += 1

@@ -10,19 +10,25 @@ their plain versions and prints one line each with the effective rate:
 - conv stack LN + GELU: (64, 3199, 512), affine LN + tanh-GELU;
 - row copy of the latter shape: the bandwidth ceiling.
 
-Runs on the GPU unless the caller passes ``device="cpu"``; times come from
-CUDA events on the GPU, from the host clock on the CPU.
+Runs on the GPU unless the caller passes ``device="cpu"``. On the GPU each
+line carries the measures of ``utils/timing.py``: ``device_ms_cold`` (CUDA
+graph replays over a rotation of input sets larger than L2; ``gb_per_s``
+is computed from it), ``device_ms_warm`` (one input set), ``call_ms``
+(events around eager calls, host launch cost included) and ``host_us`` (host
+clock per call, no synchronisation). On the CPU a line carries only
+``host_ms``, the host clock around synchronous calls: the CPU has no device
+metric.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
-import time
 from typing import Callable, Dict, List, Optional, Tuple, Union
 
 import torch
 
+from ..utils import timing
 from ..utils.device import resolve_device
 from .fused_norm import copy_rows, fused_layernorm, fused_layernorm_reference
 
@@ -35,11 +41,11 @@ SHAPES: Dict[str, Tuple[int, ...]] = {
 
 def probe_inputs(shapes: Dict[str, Tuple[int, ...]], device: torch.device,
                  seed: int = 0) -> Dict[str, torch.Tensor]:
-    """Seeded bf16 activations and f32 affine parameters on ``device``."""
-    g = torch.Generator().manual_seed(seed)
+    """Seeded bf16 activations and f32 affine parameters, drawn on ``device``."""
+    g = torch.Generator(device=device).manual_seed(seed)
 
     def normal(*shape, dtype=torch.bfloat16):
-        return torch.randn(*shape, generator=g).to(device=device, dtype=dtype)
+        return torch.randn(*shape, generator=g, device=device).to(dtype)
 
     (b1, n1, c1), (b2, n2, c2) = shapes["res_ln"], shapes["ln_gelu"]
     return dict(
@@ -66,36 +72,30 @@ def probe_cases(t: Dict[str, torch.Tensor]) -> List[Tuple[str, Callable, int]]:
     ]
 
 
-def time_call(fn: Callable, device: torch.device, iters: int, warmup: int = 3) -> float:
-    """Mean ms of one call: CUDA events on the GPU, host clock on the CPU."""
-    for _ in range(warmup):
-        fn()
-    if device.type != "cuda":
-        t0 = time.perf_counter()
-        for _ in range(iters):
-            fn()
-        return (time.perf_counter() - t0) * 1e3 / iters
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize(device)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize(device)
-    return start.elapsed_time(end) / iters
-
-
 def run_probe(device: Union[str, torch.device] = "cuda", iters: int = 100,
               shapes: Optional[Dict[str, Tuple[int, ...]]] = None) -> List[dict]:
     """Times every probe case; returns one dict per line."""
     dev = resolve_device(device)
-    cases = probe_cases(probe_inputs(shapes or SHAPES, dev))
+    shapes = shapes or SHAPES
+    first = probe_cases(probe_inputs(shapes, dev))
+    sets = 1
+    if dev.type == "cuda":  # enough input sets that the smallest case runs cold
+        sets = timing.rotation(min(nbytes for _, _, nbytes in first))
+    cases = [first] + [probe_cases(probe_inputs(shapes, dev, seed=k)) for k in range(1, sets)]
     rows = []
-    for name, fn, nbytes in cases:
+    for i, (name, _, nbytes) in enumerate(first):
+        calls = [c[i][1] for c in cases]
+        row = dict(name=name, bytes=nbytes, device=str(dev))
         with torch.no_grad():
-            ms = time_call(fn, dev, iters)
-        rows.append(dict(name=name, ms=ms, bytes=nbytes, gb_per_s=nbytes / (ms * 1e-3) / 1e9,
-                         device=str(dev)))
+            if dev.type != "cuda":
+                row["host_ms"] = timing.host_seconds(calls[0], iters) * 1e3
+            else:
+                row.update(device_ms_cold=timing.device_ms(calls, cold=True),
+                           device_ms_warm=timing.device_ms(calls[:1], cold=False),
+                           call_ms=timing.call_ms(calls[0], iters),
+                           host_us=timing.host_us(calls[0], iters))
+                row["gb_per_s"] = nbytes / (row["device_ms_cold"] * 1e-3) / 1e9
+        rows.append(row)
     return rows
 
 

@@ -201,12 +201,16 @@ def test_cpu_norm_copy_and_conv_run_plain_versions_without_counting():
 
 
 def test_norm_probe_runs_its_cases_on_the_cpu_when_asked():
+    """On the CPU the probe reports host time only, under its own name: no
+    device metric (device ms, call ms, host µs per launch, GB/s)."""
     before = fused_norm.fused_layernorm.launches, fused_norm.copy_rows.launches
     rows = norm_probe.run_probe("cpu", iters=1,
                                 shapes={"res_ln": (2, 3, 256), "ln_gelu": (2, 5, 128)})
     assert [r["name"] for r in rows] == ["res+LN kernel", "res+LN plain", "LN+GELU kernel",
                                          "LN+GELU plain", "copy kernel"]
-    assert rows[0]["bytes"] == 3 * 2 * 3 * 256 * 2 and all(r["ms"] > 0 for r in rows)
+    assert rows[0]["bytes"] == 3 * 2 * 3 * 256 * 2 and all(r["host_ms"] > 0 for r in rows)
+    for r in rows:
+        assert set(r) == {"name", "bytes", "device", "host_ms"} and r["device"] == "cpu"
     assert (fused_norm.fused_layernorm.launches, fused_norm.copy_rows.launches) == before
 
 
@@ -238,6 +242,19 @@ def test_conv_reference_matches_conv1d_layer_norm_gelu():
     y = torch.nn.functional.layer_norm(y.transpose(1, 2), (16,), scale.double(),
                                        bias.double(), 1e-5)
     torch.testing.assert_close(got, torch.nn.functional.gelu(y), atol=1e-6, rtol=0)
+
+
+@pytest.mark.parametrize("M", [1, 7, 8, 9, 12736, 12737, 204736])
+def test_ln_plan_gives_every_row_to_one_warp(M):
+    """The LN grid: warp w takes rows w, w + W, ... (as the kernel walks
+    them); every row once, at most LN_ROWS_PER_WARP a warp, and no block
+    without a row."""
+    blocks = fused_norm.ln_plan(M)
+    W = blocks * fused_norm.LN_WARPS
+    taken = [list(range(w, M, W)) for w in range(W)]
+    assert sorted(r for rows in taken for r in rows) == list(range(M))
+    assert max(len(rows) for rows in taken) <= fused_norm.LN_ROWS_PER_WARP
+    assert (blocks - 1) * fused_norm.LN_WARPS < M
 
 
 @pytest.mark.cuda
@@ -280,6 +297,39 @@ def test_fused_ln_backward_on_gpu_matches_cpu(cuda_device):
                                           (1001, torch.bfloat16), (7, torch.float32)])
 def test_copy_kernel_is_exact_on_gpu(cuda_device, numel, dtype):
     x = torch.randn(numel, generator=torch.Generator().manual_seed(2)).to(cuda_device, dtype)
+    before = fused_norm.copy_rows.launches
+    out = fused_norm.copy_rows(x)
+    torch.cuda.synchronize()
+    assert fused_norm.copy_rows.launches == before + 1
+    assert torch.equal(out, x)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("C", [128, 384, 768, 2048])  # 128, 384: 8-byte bf16 chunks
+@pytest.mark.parametrize("M", [1, 7, 12737])  # fewer rows than warps; ragged
+def test_fused_ln_grid_matches_plain_on_gpu(cuda_device, dtype, C, M):
+    act = "gelu_tanh" if M == 7 else None
+    x, scale, bias, res = _ln_inputs((M, C), dtype, cuda_device, seed=M + C, residual=True)
+    before = fused_norm.fused_layernorm.launches
+    out = fused_norm.fused_layernorm(x, scale, bias, residual=res, activation=act)
+    torch.cuda.synchronize()
+    assert fused_norm.fused_layernorm.launches == before + 1
+    ref = fused_norm.fused_layernorm_reference(x, scale, bias, res, act)
+    torch.testing.assert_close(out.float(), ref.float(), **LN_TOL[dtype])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nbytes, offset", [
+    (5, 0),                          # fewer than 16 bytes: the tail alone
+    (3 * 16384 + 16 * 5 + 7, 0),     # not a multiple of a block's 16 KB, with a tail
+    (1 << 26, 0),                    # 4096 blocks, every one full
+    (40000, 16),                     # an offset view, 16-byte aligned
+])
+def test_copy_kernel_edges_on_gpu(cuda_device, nbytes, offset):
+    g = torch.Generator().manual_seed(nbytes)
+    base = torch.randint(0, 256, (offset + nbytes,), generator=g, dtype=torch.uint8)
+    x = base.to(cuda_device)[offset:]
     before = fused_norm.copy_rows.launches
     out = fused_norm.copy_rows(x)
     torch.cuda.synchronize()
