@@ -13,9 +13,12 @@ Phases (any failure raises and the script exits non-zero without a result):
    nvcc per source, all started together, and prints the build seconds.
 3. kernel vs plain: the attention kernel against its plain PyTorch version
    at the serving shapes (B=16, H=12, D=64, N in {49, 399, 1499}), bf16 and
-   f32, with suffix padding and one fully masked batch row; times the
-   kernel, the plain version and torch's scaled_dot_product_attention (a
-   yardstick only: the port never calls it), and computes the bound.
+   f32, and the fused step's (B=64, N=199, bf16), with suffix padding and
+   one fully masked batch row, on contiguous operands and on the encoder's
+   strided views; times the kernel in turns with torch's
+   scaled_dot_product_attention (a yardstick only: the port never calls
+   it) with the measures of phase 5 below, the plain version's call ms,
+   and computes the bound. ``--only attention`` stops after this phase.
 4. the slice: full-width emotion2vec-base (768-d, 12 heads, 4 prenet + 8
    blocks, 7-layer conv front end, 5-layer positional conv) from seeded
    random weights in the fairseq layout, bf16, attention through the
@@ -63,6 +66,7 @@ Phases (any failure raises and the script exits non-zero without a result):
 
 from __future__ import annotations
 
+import argparse
 import base64
 import concurrent.futures
 import dataclasses
@@ -232,17 +236,32 @@ def random_ssrl_state_dict(input_dim: int, hidden: int, classes: int, seed: int)
     return sd
 
 
-def attention_inputs(B, H, N, D, dtype, seed, device="cuda"):
-    """q (pre-scaled), k, v and a (B, N) padding mask: suffix padding of
-    random length on most rows, one unpadded row, one fully padded row."""
+def attention_mask(B: int, N: int, seed: int) -> torch.Tensor:
+    """(B, N) padding mask: suffix padding of random length on most rows,
+    one unpadded row, one fully padded row. The lengths are drawn after
+    three (B, 12, N, 64) normal draws, where this phase once drew q, k and
+    v, so that the masks, and with them the work and the bounds, stay those
+    of the phase's earlier versions and its numbers compare across them."""
     g = torch.Generator().manual_seed(seed)
-    q, k, v = (torch.randn(B, H, N, D, generator=g) for _ in range(3))
-    q = q * D**-0.5
+    for _ in range(3):
+        torch.randn(B, 12, N, 64, generator=g)
     lengths = torch.randint(max(1, N // 3), N + 1, (B,), generator=g)
     lengths[0], lengths[-1] = N, 0
-    mask = torch.arange(N)[None, :] >= lengths[:, None]
-    return ([x.to(device=device, dtype=dtype).contiguous() for x in (q, k, v)]
-            + [mask.to(device)])
+    return (torch.arange(N)[None, :] >= lengths[:, None]).cuda()
+
+
+def attention_operands(B, H, N, D, dtype, layout: str, gen: torch.Generator) -> tuple:
+    """q (pre-scaled), k, v on the card: contiguous (B, H, N, D) tensors
+    ("heads"), or the encoder's (B, H, N, D) views of one (B, N, 3, H, D)
+    projection output ("encoder")."""
+    if layout == "heads":
+        q, k, v = (device_randn((B, H, N, D), dtype, gen) for _ in range(3))
+    else:
+        qkv = device_randn((B, N, 3, H, D), dtype, gen)
+        q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))
+    with torch.no_grad():
+        q.mul_(D**-0.5)
+    return q, k, v
 
 
 def attention_bound_ms(q: torch.Tensor, mask: torch.Tensor) -> tuple:
@@ -259,34 +278,73 @@ def attention_bound_ms(q: torch.Tensor, mask: torch.Tensor) -> tuple:
     return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
 
 
-def check_attention_kernel(N: int, dtype: torch.dtype, B: int = 16) -> dict:
-    """Kernel vs plain version at (B, 12, N, 64); returns the numbers."""
-    q, k, v, mask = attention_inputs(B, 12, N, 64, dtype, seed=N)
-    out = attention.flash_attention(q, k, v, mask)
-    torch.cuda.synchronize()
-    ref = attention.flash_attention_reference(q, k, v, mask)
+def attention_error(out, ref, mask, what: str) -> float:
+    """Max error on items with a valid key; raises past ATTN_TOL."""
     if not torch.isfinite(out).all():
-        raise AssertionError(f"attention kernel: non-finite output (N={N}, {dtype})")
+        raise AssertionError(f"attention kernel: non-finite output ({what})")
     rows = (~mask).any(dim=1)  # items with at least one valid key
     err = (out[rows].float() - ref[rows].float()).abs()
-    atol, rtol = ATTN_TOL[dtype]
-    limit = atol + rtol * ref[rows].float().abs()
-    if not bool((err <= limit).all()):
-        raise AssertionError(
-            f"attention kernel disagrees with plain (N={N}, {dtype}): "
-            f"max err {float(err.max()):.3e}, tolerance {atol} + {rtol}*|ref|"
-        )
+    atol, rtol = ATTN_TOL[ref.dtype]
+    if not bool((err <= atol + rtol * ref[rows].float().abs()).all()):
+        raise AssertionError(f"attention kernel disagrees with plain ({what}): max err "
+                             f"{float(err.max()):.3e}, tolerance {atol} + {rtol}*|ref|")
+    return float(err.max())
+
+
+def check_attention_kernel(N: int, dtype: torch.dtype, clocks: timing.ClockSampler,
+                           B: int = 16) -> dict:
+    """Kernel vs plain version at (B, 12, N, 64), then timed in turns with
+    SDPA on the same inputs (a yardstick: the port never calls it), with
+    every measure of phase 5, in two layouts: contiguous operands and the
+    encoder's strided views (the layout of the main path, whose numbers
+    the kernels line reports)."""
+    t0 = time.perf_counter()
+    H, D = 12, 64
+    mask = attention_mask(B, N, seed=N)
     sdpa_mask = ~mask[:, None, None, :]
-    bound, bound_by = attention_bound_ms(q, mask)
-    return dict(
-        B=B, N=N, dtype=str(dtype).replace("torch.", ""),
-        max_abs_err=float(err.max()),
-        ms=timing.call_ms(lambda: attention.flash_attention(q, k, v, mask)),
-        plain_ms=timing.call_ms(lambda: attention.flash_attention_reference(q, k, v, mask)),
-        library_ms=timing.call_ms(lambda: F.scaled_dot_product_attention(
-            q, k, v, attn_mask=sdpa_mask, scale=1.0)),
-        bound_ms=bound, bound_by=bound_by,
-    )
+    gen = torch.Generator(device="cuda").manual_seed(N)
+    n_sets = timing.rotation(4 * B * H * N * D * dtype.itemsize)
+    r = dict(B=B, N=N, dtype=str(dtype).replace("torch.", ""), rotation=n_sets)
+    for layout in ("heads", "encoder"):
+        sets = [attention_operands(B, H, N, D, dtype, layout, gen) for _ in range(n_sets)]
+        q, k, v = sets[0]
+        out = attention.flash_attention(q, k, v, mask)
+        torch.cuda.synchronize()
+        ref = attention.flash_attention_reference(q, k, v, mask)
+        err = attention_error(out, ref, mask, f"N={N}, {dtype}, {layout}")
+        del out, ref
+        times = in_turns(
+            [lambda s=s: attention.flash_attention(*s, mask) for s in sets],
+            [lambda s=s: F.scaled_dot_product_attention(*s, attn_mask=sdpa_mask, scale=1.0)
+             for s in sets])
+        r[layout] = dict(max_abs_err=err, **times)
+        if layout == "heads":
+            r["plain_ms"] = timing.call_ms(
+                lambda: attention.flash_attention_reference(q, k, v, mask))
+            r["bound_ms"], r["bound_by"] = attention_bound_ms(q, mask)
+        del sets, q, k, v
+        torch.cuda.empty_cache()
+    main = r["encoder"]
+    r.update(max_abs_err=main["max_abs_err"], ms=main["device_ms_cold"],
+             library_ms=main["library_device_ms_cold"],
+             clocks=clocks.summary(t0, time.perf_counter()))
+    return r
+
+
+def run_attention_phase() -> dict:
+    """Phase 3: the serving shapes (B = 16, N 49, 399, 1499) in bf16 and
+    f32, and the fused step's shape (B = 64 clips of 4 s, N = 199)."""
+    results = {}
+    with timing.ClockSampler(gpu=torch.cuda.current_device()) as clocks:
+        cases = [(torch.bfloat16, N, 16) for N in (49, 399, 1499)]
+        cases += [(torch.float32, N, 16) for N in (49, 399, 1499)]
+        cases += [(torch.bfloat16, 199, TRAIN_B)]
+        for dtype, N, B in cases:
+            r = check_attention_kernel(N, dtype, clocks, B=B)
+            results[(dtype, N, B)] = r
+            print("kernel: " + json.dumps(r), flush=True)
+    print(f"kernel: attention phase clocks {clocks.summary()}", flush=True)
+    return results
 
 
 def synthetic_clip(n: int, seed: int) -> np.ndarray:
@@ -961,7 +1019,15 @@ def run_training_slice(enc_sd, clean: FusedBatch, noisy: FusedBatch) -> dict:
 T_START = time.perf_counter()
 
 
-def main() -> int:
+def parse_args(argv=None) -> argparse.Namespace:
+    p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    p.add_argument("--only", choices=("attention",),
+                   help="build and run phases 1-3 only (to time two checkouts in one call)")
+    return p.parse_args(argv)
+
+
+def main(argv=None) -> int:
+    args = parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 1
@@ -972,21 +1038,22 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
 
+    sources = ("attention",) if args.only else SOURCES
     t0 = time.perf_counter()
-    with concurrent.futures.ThreadPoolExecutor(len(SOURCES)) as pool:
-        list(pool.map(cuda_build.build, SOURCES))
-    print(f"build: {', '.join(SOURCES)} in {time.perf_counter() - t0:.1f} s", flush=True)
+    with concurrent.futures.ThreadPoolExecutor(len(sources)) as pool:
+        list(pool.map(cuda_build.build, sources))
+    print(f"build: {', '.join(sources)} in {time.perf_counter() - t0:.1f} s", flush=True)
 
-    results = {}
-    for dtype in (torch.bfloat16, torch.float32):
-        for N in (49, 399, 1499):
-            r = check_attention_kernel(N, dtype)
-            results[(dtype, N)] = r
-            print("kernel: " + json.dumps(r), flush=True)
-
+    attn = run_attention_phase()
+    if args.only:
+        print(f"total: {time.perf_counter() - T_START:.1f} s", flush=True)
+        print(smi)
+        print(json.dumps({"ok": True, "only": args.only, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return 0
     # the fused step's attention shape: B = 64 clips of 4 s (199 frames)
-    step_attn = check_attention_kernel(199, torch.bfloat16, B=TRAIN_B)
-    print("kernel: " + json.dumps(step_attn), flush=True)
+    step_attn = attn[(torch.bfloat16, 199, TRAIN_B)]
 
     slice_info = run_slice()
     norm = run_norm_phase()

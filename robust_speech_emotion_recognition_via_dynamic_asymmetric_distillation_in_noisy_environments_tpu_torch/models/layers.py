@@ -290,11 +290,13 @@ class AltAttention(nn.Module):
             self.use_flash == "auto" and N >= FLASH_AUTO_MIN_FRAMES
         )
         if want_flash:
+            # q, k, v go in as strided views of the projection output, and the
+            # output comes back as a view of a (B, N, H, Dh) buffer: no copy on
+            # either side. The kernel scales the f32 scores instead of q; at
+            # Dh = 64 the scale is 2^-3, which gives the same bits.
             out = flash_attention(
-                (q * scale).transpose(1, 2).contiguous(),
-                k.transpose(1, 2).contiguous(),
-                v.transpose(1, 2).contiguous(),
-                padding_mask=padding_mask,
+                q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                padding_mask=padding_mask, scale=scale,
             ).transpose(1, 2)
         else:
             attn = torch.einsum("bnhd,bmhd->bhnm", q * scale, k)

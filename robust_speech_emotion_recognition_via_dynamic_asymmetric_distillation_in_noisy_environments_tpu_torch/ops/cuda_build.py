@@ -1,7 +1,8 @@
 """Builds the port's CUDA sources into shared libraries and loads them.
 
 Each ``csrc/<name>.cu`` compiles with ``nvcc`` for ``sm_90a`` into a shared
-library with a plain C interface, loaded through ``ctypes``. The build runs
+library with a plain C interface, loaded through ``ctypes``; ``launch``
+calls one of its entry points on the current stream. The build runs
 at first use into ``csrc/build/`` (listed in ``.gitignore``), keyed by a
 hash of the source, so a changed source never loads a stale library. Only
 the sources in the package are compiled; nothing is fetched.
@@ -17,6 +18,8 @@ import subprocess
 import threading
 from pathlib import Path
 from typing import Dict
+
+import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = CSRC / "build"
@@ -71,3 +74,13 @@ def load(name: str) -> ctypes.CDLL:
             lib = ctypes.CDLL(str(build(name)))
             _loaded[name] = lib
         return lib
+
+
+def launch(fn, device: int, *args) -> int:
+    """Calls a kernel's C entry on ``device``'s current stream (its raw
+    handle, without building a Stream object, as the last argument),
+    switching the current device only when it differs."""
+    if device == torch.cuda.current_device():
+        return fn(*args, torch._C._cuda_getCurrentRawStream(device))
+    with torch.cuda.device(device):
+        return fn(*args, torch._C._cuda_getCurrentRawStream(device))

@@ -98,16 +98,6 @@ def _check_aligned(name: str, t: torch.Tensor) -> None:
         raise ValueError(f"fused_norm kernel needs 16-byte aligned {name}")
 
 
-def _launch(fn, device: int, *args) -> int:
-    """Calls a kernel's C entry on ``device``'s current stream (its raw
-    handle, without building a Stream object), switching the current device
-    only when it differs."""
-    if device == torch.cuda.current_device():
-        return fn(*args, torch._C._cuda_getCurrentRawStream(device))
-    with torch.cuda.device(device):
-        return fn(*args, torch._C._cuda_getCurrentRawStream(device))
-
-
 def _affine(t: torch.Tensor, name: str, C: int, device: torch.device) -> torch.Tensor:
     """scale or bias as the kernel reads it: (C,) f32, contiguous, aligned
     (a copy only where the caller's tensor is not that already)."""
@@ -144,7 +134,7 @@ def _launch_ln(x, residual, scale, bias, activation, eps) -> torch.Tensor:
     M = x.numel() // C
     if M == 0:
         return out
-    err = _launch(_library().fused_ln_fwd, device.index, x.data_ptr(), res_ptr, scale_ptr,
+    err = cuda_build.launch(_library().fused_ln_fwd, device.index, x.data_ptr(), res_ptr, scale_ptr,
                   bias_ptr, out.data_ptr(), M, C, int(x.dtype == torch.bfloat16),
                   int(activation == "gelu_tanh"), eps, ln_plan(M))
     if err != 0:
@@ -232,7 +222,7 @@ def copy_rows(x: torch.Tensor) -> torch.Tensor:
     nbytes = x.numel() * x.element_size()
     if nbytes == 0:
         return out
-    err = _launch(_library().copy_rows, x.device.index, x.data_ptr(), out.data_ptr(), nbytes)
+    err = cuda_build.launch(_library().copy_rows, x.device.index, x.data_ptr(), out.data_ptr(), nbytes)
     if err != 0:
         raise RuntimeError(f"copy kernel launch failed: CUDA error {err}")
     copy_rows.launches += 1

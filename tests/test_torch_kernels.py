@@ -52,6 +52,14 @@ def _inputs(B, H, N, lengths, dtype=torch.float32, device="cpu", seed=0, D=64):
     return q, k, v, mask.to(device)
 
 
+def _encoder_views(B, H, N, dtype=torch.float32, device="cpu", seed=0, D=64):
+    """q, k, v as the encoder passes them: (B, H, N, D) views of one
+    (B, N, 3, H, D) projection output, q not pre-scaled."""
+    g = torch.Generator().manual_seed(seed)
+    qkv = torch.randn(B, N, 3, H, D, generator=g).to(device, dtype)
+    return tuple(qkv[:, :, i].transpose(1, 2) for i in range(3))
+
+
 def test_reference_fully_masked_row_is_finite_uniform():
     q, k, v, mask = _inputs(1, 1, 10, [0], D=8)
     out = attention.flash_attention_reference(q, k, v, mask)
@@ -74,6 +82,59 @@ def test_cpu_runs_the_plain_version_without_counting():
     out = attention.flash_attention(q, k, v, mask)
     assert attention.flash_attention.launches == before
     torch.testing.assert_close(out, attention.flash_attention_reference(q, k, v, mask))
+
+
+def test_strided_views_match_contiguous_copies_and_output_layout():
+    """The encoder's views give what contiguous copies give, and the output
+    is the transpose view of a contiguous (B, N, H, D) buffer."""
+    q, k, v = _encoder_views(2, 3, 21, seed=3)
+    mask = torch.arange(21)[None, :] >= torch.tensor([21, 9])[:, None]
+    out = attention.flash_attention(q, k, v, mask, scale=0.125)
+    want = attention.flash_attention(*(t.contiguous() for t in (q, k, v)), mask, scale=0.125)
+    assert torch.equal(out, want)
+    for t in (out, want):
+        assert t.shape == (2, 3, 21, 64) and t.transpose(1, 2).is_contiguous()
+    assert out.transpose(1, 2).reshape(2, 21, 3 * 64).data_ptr() == out.data_ptr()
+
+
+def test_scale_on_scores_equals_prescaled_q():
+    """scale = 2^-3 on the f32 scores gives the bits of q scaled first."""
+    q, k, v = _encoder_views(2, 2, 30, seed=4)
+    mask = torch.arange(30)[None, :] >= torch.tensor([30, 11])[:, None]
+    scaled = attention.flash_attention_reference(q, k, v, mask, scale=0.125)
+    assert torch.equal(scaled, attention.flash_attention_reference(q * 0.125, k, v, mask))
+    qb, kb, vb = (t.bfloat16() for t in (q, k, v))
+    assert torch.equal(attention.flash_attention_reference(qb, kb, vb, mask, scale=0.125),
+                       attention.flash_attention_reference(qb * 0.125, kb, vb, mask))
+
+
+def test_attention_strides_accepts_the_encoder_views():
+    B, H, N = 2, 12, 37
+    q, k, v = _encoder_views(B, H, N, torch.bfloat16)
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        assert attention.attention_strides(t, name) == (N * 3 * H * 64, 64, 3 * H * 64)
+    c = q.contiguous()
+    assert attention.attention_strides(c, "q") == (H * N * 64, N * 64, 64)
+    # a dimension of size 1 reports its contiguous stride, whatever it holds
+    one = torch.empty(1000, dtype=torch.bfloat16).as_strided((1, 2, 3, 64), (5, 192, 64, 1))
+    assert attention.attention_strides(one, "q") == (2 * 3 * 64, 3 * 64, 64)
+
+
+@pytest.mark.parametrize("case, message", [
+    ("last stride", "last stride 1"),
+    ("stride of 68", "multiples of 8"),
+    ("misaligned", "16-byte aligned"),
+])
+def test_attention_strides_rejects_what_tma_cannot_read(case, message):
+    base = torch.zeros(2, 3, 16, 68, dtype=torch.bfloat16)
+    bad = {
+        "last stride": base[..., :64].transpose(2, 3).contiguous().transpose(2, 3),
+        "stride of 68": base[..., :64],
+        "misaligned": torch.zeros(2 * 3 * 16 * 64 + 1, dtype=torch.bfloat16)[1:].view(
+            2, 3, 16, 64),
+    }[case]
+    with pytest.raises(ValueError, match=message):
+        attention.attention_strides(bad, "q")
 
 
 def test_rejects_unsupported_devices_and_shapes():
@@ -113,11 +174,14 @@ def test_kernel_matches_plain_on_gpu(cuda_device, dtype, N, lengths):
 def test_kernel_rejects_what_it_does_not_take(cuda_device):
     q, k, v, mask = _inputs(2, 2, 16, [16, 8], torch.bfloat16, cuda_device)
     bad = {
-        "contiguous": (q.transpose(2, 3).contiguous().transpose(2, 3), k, v, mask),
+        "last stride 1": (q.transpose(2, 3).contiguous().transpose(2, 3), k, v, mask),
+        "multiples of 8": (torch.zeros(2, 2, 16, 68, dtype=q.dtype, device=cuda_device)[..., :64],
+                           k, v, mask),
         "head dim": tuple(t[..., :32].contiguous() for t in (q, k, v)) + (mask,),
         "bf16 or f32": (q.half(), k.half(), v.half(), mask),
         "does not match": (q, k.float(), v, mask),
         "padding_mask": (q, k, v, mask.int()),
+        "scale > 0": (q, k, v, mask, -0.125),
     }
     shifted = torch.empty(q.numel() + 1, dtype=q.dtype, device=cuda_device)[1:].view(q.shape)
     bad["aligned"] = (shifted, k, v, mask)
@@ -126,6 +190,62 @@ def test_kernel_rejects_what_it_does_not_take(cuda_device):
             attention.flash_attention(*args)
     with pytest.raises(ValueError, match="padding_mask"):
         attention.flash_attention(q, k, v, mask.cpu())
+
+
+def _check_against_plain(q, k, v, mask, scale, dtype):
+    """One kernel call against the plain version: one launch, the output
+    layout, valid items within TOL, all-padded items written as 0."""
+    before = attention.flash_attention.launches
+    out = attention.flash_attention(q, k, v, mask, scale=scale)
+    torch.cuda.synchronize()
+    assert attention.flash_attention.launches == before + 1
+    assert out.dtype == dtype and out.shape == q.shape and out.transpose(1, 2).is_contiguous()
+    assert torch.isfinite(out).all()
+    ref = attention.flash_attention_reference(q, k, v, mask, scale)
+    rows = torch.ones(q.shape[0], dtype=torch.bool, device=q.device)
+    if mask is not None:
+        rows = (~mask).any(dim=1)
+        assert (out[~rows] == 0).all()  # every key padded: written as 0
+    torch.testing.assert_close(out[rows].float(), ref[rows].float(), **TOL[dtype])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("masked", [True, False])
+@pytest.mark.parametrize("N", [1, 7, 64, 199, 257, 1499])
+def test_attention_kernel_on_encoder_views_matches_plain_on_gpu(cuda_device, dtype, masked, N):
+    q, k, v = _encoder_views(3, 2, N, dtype, cuda_device, seed=N)
+    mask = None
+    if masked:
+        lengths = torch.tensor([N, max(1, N // 2), 0] if N > 1 else [1, 1, 0])
+        mask = (torch.arange(N)[None, :] >= lengths[:, None]).to(cuda_device)
+    _check_against_plain(q, k, v, mask, 0.125, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N", [199, 400, 1499])
+def test_attention_kernel_mask_with_gaps_on_gpu(cuda_device, N):
+    """Padded keys in the middle, whole padded key tiles between valid
+    ones, a lone valid key, an item with every key padded."""
+    q, k, v = _encoder_views(5, 3, N, torch.bfloat16, cuda_device, seed=N)
+    g = torch.Generator().manual_seed(N)
+    mask = torch.rand(5, N, generator=g) < 0.3   # scattered padding
+    mask[0, 64:192] = True                       # two padded tiles between valid ones
+    mask[1] = True
+    mask[1, N - 5] = False                       # one valid key, in the last tile
+    mask[2, :] = True                            # every key padded
+    mask[3, ::2] = True                          # every other key padded
+    _check_against_plain(q, k, v, mask.to(cuda_device), 0.125, torch.bfloat16)
+
+
+@pytest.mark.cuda
+def test_attention_kernel_many_waves_on_gpu(cuda_device):
+    """The fused step's shape, B * H = 768 (bh, q-block) pairs: several
+    waves of blocks over the SMs."""
+    q, k, v = _encoder_views(64, 12, 199, torch.bfloat16, cuda_device, seed=9)
+    lengths = torch.randint(60, 200, (64,), generator=torch.Generator().manual_seed(9))
+    mask = (torch.arange(199)[None, :] >= lengths[:, None]).to(cuda_device)
+    _check_against_plain(q, k, v, mask, 0.125, torch.bfloat16)
 
 
 @pytest.mark.cuda
