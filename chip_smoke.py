@@ -45,11 +45,15 @@ Phases (any failure raises and the script exits non-zero without a result):
 6. conv stack vs plain: ``fused_conv_ln_gelu`` per layer of the
    emotion2vec front end at B = 64, 4 s clips, on the encoder's own conv
    weights and the training slice's noisy batch (erf GELU, and tanh for
-   layers 1-6), timed beside the plain version and F.conv1d + F.layer_norm
-   + F.gelu; then the whole front end through the kernel (layer 0 +
-   ``pallas_conv_stack``, its path, launches counted) held against the
+   layers 1-6), held against the plain version, then timed in turns with
+   F.conv1d + F.layer_norm + F.gelu by phase 5's measures (the ``ms`` of a
+   layer is its device ms with cold L2), beside the plain version's call
+   ms and the bound; then the whole front end through the kernel (layer 0
+   + ``pallas_conv_stack``, its path, launches counted) held against the
    port's ``ConvFeatureExtractor`` (plain path, erf GELU, f32 LN), bf16
-   and f32.
+   and f32. ``--only conv`` builds conv.cu and runs phases 1, 2 and 6,
+   then times the tensor-core path's grid (a block per SM walking the
+   tiles) against a block per tile at layers 1-6.
 7. the training slice: ``bench.py``'s configuration (full-width
    emotion2vec-base, bf16, tanh GELU, iemocap DAD preset, B = 64 clips of
    4 s per stream, white noise at 10 dB, cached clean features, epoch 40
@@ -61,7 +65,8 @@ Phases (any failure raises and the script exits non-zero without a result):
    (all samples padded, ``row_valid`` False) in the noisy batch. Prints
    ms/step, training clips/s and a torch.profiler breakdown of one step.
 8. prints the ``nvidia-smi`` line, a ``kernels`` JSON line (all four
-   kernels), then the result line ``{"ok": true, "device": {...}}`` last.
+   kernels; the conv entry sums its seven layers' numbers), then the
+   result line ``{"ok": true, "device": {...}}`` last.
 """
 
 from __future__ import annotations
@@ -570,23 +575,24 @@ def max_err(out: torch.Tensor, ref: torch.Tensor, tol: tuple, what: str) -> floa
 MEASURES = ("device_ms_cold", "device_ms_warm", "call_ms", "host_us")
 
 
-def measure(calls, what: str) -> float:
+def measure(calls, what: str, launches: int = 20) -> float:
     if what == "device_ms_cold":
-        return timing.device_ms(calls, cold=True)
+        return timing.device_ms(calls, cold=True, launches=launches)
     if what == "device_ms_warm":
-        return timing.device_ms(calls[:1], cold=False)
+        return timing.device_ms(calls[:1], cold=False, launches=launches)
     if what == "call_ms":
         return timing.call_ms(calls[0])
     return timing.host_us(calls[0])
 
 
-def in_turns(kernel_calls, library_calls) -> dict:
+def in_turns(kernel_calls, library_calls, launches: int = 20) -> dict:
     """Every measure of the kernel and of the library call, in the order
-    kernel, library, library, kernel: the mean of each pair, and the four."""
+    kernel, library, library, kernel: the mean of each pair, and the four.
+    ``launches``: calls captured in one CUDA graph for the device ms."""
     out = {}
     for what in MEASURES:
-        k1, l1 = measure(kernel_calls, what), measure(library_calls, what)
-        l2, k2 = measure(library_calls, what), measure(kernel_calls, what)
+        k1, l1 = measure(kernel_calls, what, launches), measure(library_calls, what, launches)
+        l2, k2 = measure(library_calls, what, launches), measure(kernel_calls, what, launches)
         out[what], out[f"library_{what}"] = (k1 + k2) / 2, (l1 + l2) / 2
         out[f"{what}_turns"] = [k1, l1, l2, k2]
     return out
@@ -732,54 +738,82 @@ def conv_bound(x, w, t_out: int) -> tuple:
     return bound(nbytes, 2.0 * B * t_out * c_out * k * c_in, PEAK_FLOPS[x.dtype])
 
 
-def conv_case(i: int, x, w, scale, bias, k, s, approx: bool) -> tuple:
-    """Layer i: kernel vs plain on the same input; returns (numbers, the
-    plain output)."""
+# graph launches for a conv layer's device ms: a cold graph keeps every
+# output (up to 839 MB at layer 0), so fewer than the default 20
+CONV_LAUNCHES = 8
+
+
+def rotated_inputs(x: torch.Tensor, set_bytes: int) -> list:
+    """x and as many copies rolled along the batch as one cold rotation
+    needs (``timing.rotation``)."""
+    return [x] + [x.roll(n, dims=0) for n in range(1, timing.rotation(set_bytes))]
+
+
+def conv_case(i: int, x, w, scale, bias, k, s, approx: bool,
+              clocks: timing.ClockSampler) -> tuple:
+    """Layer i: kernel vs plain on the same input, then the kernel timed in
+    turns with F.conv1d + F.layer_norm + F.gelu (every measure of phase 5)
+    on a rotation of inputs; returns (numbers, the plain output)."""
+    t0 = time.perf_counter()
+    B, L, c_in = x.shape
+    c_out = w.shape[2]
+    path = conv.conv_plan(B, L, c_in, c_out, k, s, x.dtype).path
     with torch.no_grad():
         out = conv.fused_conv_ln_gelu(x, w, scale, bias, k, s, approx_gelu=approx)
         torch.cuda.synchronize()
         ref = conv.fused_conv_ln_gelu_reference(x, w, scale, bias, k, s, approx)
         err = max_err(out, ref, CONV_TOL[x.dtype], f"conv layer {i} ({x.dtype}, "
                       f"{'tanh' if approx else 'erf'})")
+        del out
+        t_out = ref.shape[1]
+        sets = rotated_inputs(x, (x.numel() + B * t_out * c_out) * x.element_size())
+        n_sets = len(sets)
         wt, sc, bi = w.permute(2, 1, 0).contiguous(), scale.to(x.dtype), bias.to(x.dtype)
 
-        def library():
-            y = torch.nn.functional.conv1d(x.transpose(1, 2), wt, stride=s).transpose(1, 2)
-            y = torch.nn.functional.layer_norm(y, (w.shape[2],), sc, bi, 1e-5)
-            return torch.nn.functional.gelu(y, approximate="tanh" if approx else "none")
+        def library(xs):
+            y = F.conv1d(xs.transpose(1, 2), wt, stride=s).transpose(1, 2)
+            y = F.layer_norm(y, (c_out,), sc, bi, 1e-5)
+            return F.gelu(y, approximate="tanh" if approx else "none")
 
-        b, by = conv_bound(x, w, ref.shape[1])
-        r = dict(kernel="fused_conv_ln_gelu", layer=i, gelu="tanh" if approx else "erf",
-                 x=list(x.shape), k=k, s=s, dtype=str(x.dtype).replace("torch.", ""),
-                 tensor_cores=conv.uses_tensor_cores(x.dtype, x.shape[2], w.shape[2]),
-                 max_abs_err=err,
-                 ms=timing.call_ms(lambda: conv.fused_conv_ln_gelu(x, w, scale, bias, k, s,
-                                                                   approx_gelu=approx), iters=10),
-                 plain_ms=timing.call_ms(lambda: conv.fused_conv_ln_gelu_reference(
-                     x, w, scale, bias, k, s, approx), iters=3, warmup=1),
-                 library_ms=timing.call_ms(library, iters=10), bound_ms=b, bound_by=by)
+        times = in_turns(
+            [lambda xs=xs: conv.fused_conv_ln_gelu(xs, w, scale, bias, k, s, approx_gelu=approx)
+             for xs in sets],
+            [lambda xs=xs: library(xs) for xs in sets], launches=CONV_LAUNCHES)
+        plain = timing.call_ms(lambda: conv.fused_conv_ln_gelu_reference(
+            x, w, scale, bias, k, s, approx), iters=3, warmup=1)
+        del sets
+    b, by = conv_bound(x, w, t_out)
+    r = dict(kernel="fused_conv_ln_gelu", layer=i, gelu="tanh" if approx else "erf",
+             x=list(x.shape), k=k, s=s, dtype=str(x.dtype).replace("torch.", ""), path=path,
+             max_abs_err=err, ms=times["device_ms_cold"],
+             library_ms=times["library_device_ms_cold"], plain_ms=plain, bound_ms=b,
+             bound_by=by, share_of_bound=b / times["device_ms_cold"], rotation=n_sets,
+             **times, clocks=clocks.summary(t0, time.perf_counter()))
+    torch.cuda.empty_cache()
     return r, ref
 
 
 def run_conv_phase(enc_sd, wav: torch.Tensor, wav_mask: torch.Tensor) -> dict:
-    """Phase 6: each conv layer vs plain, then the front end through the
-    kernel (its path) vs the port's ConvFeatureExtractor."""
+    """Phase 6: each conv layer vs plain and timed in turns with its PyTorch
+    call, then the front end through the kernel (its path) vs the port's
+    ConvFeatureExtractor."""
     layers = EncoderConfig().conv_feature_layers
-    front = {k[len("local_encoder."):]: v.cuda() for k, v in enc_sd.items()
-             if k.startswith("local_encoder.")}
+    front = conv_front_params(enc_sd)
     x0 = normalize_wav(wav, wav_mask)[:, :, None]
     rows = []
     x = x0.to(torch.bfloat16)
-    for i, (_dim, k, s) in enumerate(layers):
-        w, scale, bias = conv.conv_layer_params(front, i, torch.bfloat16)
-        for approx in ((False,) if i == 0 else (False, True)):
-            r, ref = conv_case(i, x, w, scale, bias, k, s, approx)
-            rows.append(r)
-            print("kernel: " + json.dumps(r), flush=True)
-            if not approx:
-                nxt = ref
-        x = nxt
-        del ref
+    with timing.ClockSampler(gpu=torch.cuda.current_device()) as clocks:
+        for i, (_dim, k, s) in enumerate(layers):
+            w, scale, bias = conv.conv_layer_params(front, i, torch.bfloat16)
+            for approx in ((False,) if i == 0 else (False, True)):
+                r, ref = conv_case(i, x, w, scale, bias, k, s, approx, clocks)
+                rows.append(r)
+                print("kernel: " + json.dumps(r), flush=True)
+                if not approx:
+                    nxt = ref
+            x = nxt
+            del ref
+    print(f"kernel: conv phase clocks {clocks.summary()}", flush=True)
 
     stack = {}
     for dtype, n in ((torch.bfloat16, TRAIN_B), (torch.float32, 16)):
@@ -814,6 +848,45 @@ def run_conv_phase(enc_sd, wav: torch.Tensor, wav_mask: torch.Tensor) -> dict:
           flush=True)
     torch.cuda.empty_cache()
     return dict(rows=rows, launches=stack["bfloat16"]["launches"])
+
+
+def conv_front_params(enc_sd) -> dict:
+    """The encoder's ConvFeatureExtractor state dict, on the card."""
+    return {k[len("local_encoder."):]: v.cuda() for k, v in enc_sd.items()
+            if k.startswith("local_encoder.")}
+
+
+def run_conv_grid(enc_sd, wav: torch.Tensor, wav_mask: torch.Tensor) -> list:
+    """The tensor-core path at each of layers 1-6 (erf GELU) with a block
+    per tile against its grid of a block per SM walking the tiles: device
+    ms cold, in turns (tiles, SMs, SMs, tiles), on each layer's input from
+    the kernel's own front end."""
+    layers = EncoderConfig().conv_feature_layers
+    front = conv_front_params(enc_sd)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    x = normalize_wav(wav, wav_mask)[:, :, None].to(torch.bfloat16)
+    rows = []
+    with torch.no_grad():
+        for i, (_dim, k, s) in enumerate(layers):
+            w, scale, bias = conv.conv_layer_params(front, i, torch.bfloat16)
+            B, L, c_in = x.shape
+            plans = [conv.conv_plan(B, L, c_in, w.shape[2], k, s, x.dtype, sms=n)
+                     for n in (10**6, sms)]
+            if plans[0].path == "tc":
+                out_bytes = B * plans[0].t_out * w.shape[2] * x.element_size()
+                sets = rotated_inputs(x, x.numel() * x.element_size() + out_bytes)
+                calls = [[lambda xs=xs, p=p: conv.launch_plan(xs, w, scale, bias, k, s, False, p)
+                          for xs in sets] for p in plans]
+                turns = [timing.device_ms(calls[n], cold=True, launches=CONV_LAUNCHES)
+                         for n in (0, 1, 1, 0)]
+                rows.append(dict(layer=i, tiles=plans[0].grid, blocks=plans[1].grid,
+                                 tiles_device_ms_cold=(turns[0] + turns[3]) / 2,
+                                 device_ms_cold=(turns[1] + turns[2]) / 2, turns=turns))
+                print("conv grid: " + json.dumps(rows[-1]), flush=True)
+                del sets, calls
+            x = conv.fused_conv_ln_gelu(x, w, scale, bias, k, s)
+    torch.cuda.empty_cache()
+    return rows
 
 
 def training_batches():
@@ -1021,8 +1094,10 @@ T_START = time.perf_counter()
 
 def parse_args(argv=None) -> argparse.Namespace:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    p.add_argument("--only", choices=("attention",),
-                   help="build and run phases 1-3 only (to time two checkouts in one call)")
+    p.add_argument("--only", choices=("attention", "conv"),
+                   help="attention: build and run phases 1-3 only; conv: build conv.cu and "
+                        "run phases 1, 2 and 6, then the conv grid comparison (to time two "
+                        "checkouts in one call)")
     return p.parse_args(argv)
 
 
@@ -1038,19 +1113,30 @@ def main(argv=None) -> int:
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
 
-    sources = ("attention",) if args.only else SOURCES
+    sources = (args.only,) if args.only else SOURCES
     t0 = time.perf_counter()
     with concurrent.futures.ThreadPoolExecutor(len(sources)) as pool:
         list(pool.map(cuda_build.build, sources))
     print(f"build: {', '.join(sources)} in {time.perf_counter() - t0:.1f} s", flush=True)
 
-    attn = run_attention_phase()
+    def result(**extra) -> str:
+        return json.dumps({"ok": True, **extra, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}})
+
+    if args.only == "conv":
+        # the serving slice's encoder weights and the training slice's noisy batch
+        enc_cfg = EncoderConfig(dtype="bfloat16", use_flash_attention=True)
+        enc_sd = fairseq_to_torch_encoder(random_fairseq_state_dict(enc_cfg, seed=0), enc_cfg)
+        _clean, noisy = training_batches()
+        run_conv_phase(enc_sd, noisy.wav, noisy.wav_mask)
+        run_conv_grid(enc_sd, noisy.wav, noisy.wav_mask)
+    else:
+        attn = run_attention_phase()
     if args.only:
         print(f"total: {time.perf_counter() - T_START:.1f} s", flush=True)
         print(smi)
-        print(json.dumps({"ok": True, "only": args.only, "device": {
-            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-            "count": torch.cuda.device_count()}}))
+        print(result(only=args.only))
         return 0
     # the fused step's attention shape: B = 64 clips of 4 s (199 frames)
     step_attn = attn[(torch.bfloat16, 199, TRAIN_B)]
@@ -1067,7 +1153,8 @@ def main(argv=None) -> int:
                     **{k: r[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
                                          "bound_by", "library_ms")})
 
-    # the conv kernel over the whole front end: each layer once (erf GELU)
+    # the conv kernel over the whole front end: each layer once (erf GELU),
+    # the sums of the layers' device ms with cold L2 and of their library ms
     erf_rows = [r for r in conv_info["rows"] if r["gelu"] == "erf"]
     front = {k: sum(r[k] for r in erf_rows)
              for k in ("ms", "plain_ms", "bound_ms", "library_ms")}
@@ -1087,9 +1174,7 @@ def main(argv=None) -> int:
     print(f"total: {time.perf_counter() - T_START:.1f} s", flush=True)
     print(smi)
     print(json.dumps({"kernels": kernels}))
-    print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count()}}))
+    print(result())
     return 0
 
 

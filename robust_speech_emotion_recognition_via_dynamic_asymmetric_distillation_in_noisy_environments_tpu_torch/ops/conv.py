@@ -9,10 +9,11 @@ affine), then erf-GELU (the JAX kernel's polynomial erf) or tanh-GELU
 (``approx_gelu``), stored in x's dtype. Layouts are the JAX function's:
 x (B, L, C_in), w (k, C_in, C_out), scale/bias (C_out,).
 
-For CUDA tensors ``fused_conv_ln_gelu`` launches the kernel or raises:
-the tensor-core path for bf16 with C_in % 32 == 0 and C_out in {128, ...,
-512} (conv layers 1-6 of emotion2vec), the FMA path for everything else
-(layer 0's C_in = 1, f32). For CPU tensors it runs
+For CUDA tensors ``fused_conv_ln_gelu`` launches the kernel or raises;
+``conv_plan`` picks its path: the tensor-core path (TMA + wgmma) for bf16
+with C_in % 64 == 0, C_out in {128, ..., 512} and s <= 4 (conv layers 1-6
+of emotion2vec), the row path for bf16 with C_in = 1 (layer 0), the FMA
+path for everything else (f32, other widths). For CPU tensors it runs
 ``fused_conv_ln_gelu_reference``. Nothing in the encoder calls it: its
 path is the ops API and ``pallas_conv_stack`` over the encoder's own conv
 parameters (the JAX function of that name, kept so a reader finds the
@@ -23,14 +24,38 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Mapping, Sequence, Tuple
+from typing import Mapping, NamedTuple, Sequence, Tuple
 
 import torch
 
 from . import cuda_build
 
-WMMA_C_OUT = (128, 256, 384, 512)
-WMMA_K_CHUNK = 32
+# The tensor-core path (bf16, csrc/conv.cu conv_tc_kernel): tiles of TC_ROWS
+# output rows (one wgmma M) across all C_out columns, fed by TMA through a
+# ring of stages of TC_K_STEP input channels (one 128-byte swizzle row of
+# bf16). The x map steps over input rows with a traversal stride of s, and a
+# box spans at most 256 rows, so 64 rows need s <= TC_MAX_STRIDE. A block
+# per SM walks the tiles, so that the producer fills the next tile's stages
+# during the epilogue (2-7 % faster at emotion2vec's layers 1-6 than a block
+# per tile on an H100, chip_smoke.py --only conv).
+TC_C_OUT = (128, 256, 384, 512)
+TC_ROWS = 64
+TC_K_STEP = 64
+TC_MAX_STRIDE = 4
+TC_MAX_STAGES = 8
+# The row path (bf16, C_in = 1: conv layer 0, conv_row_kernel): a warp per
+# ROW_M output rows, the k <= 16 taps as one mma.sync k-step; blocks of
+# ROW_WARPS warps, at most ROW_BLOCKS_PER_SM for each SM, walking the rows.
+ROW_C_OUT = (256, 512)
+ROW_MAX_K = 16
+ROW_M = 16
+ROW_WARPS = 8
+ROW_BLOCKS_PER_SM = 4
+# The FMA path (everything else, f32 included): rows per block, the first
+# whose input window and f32 tile fit in shared memory.
+FMA_ROWS = (32, 8, 1)
+MAX_SMEM = 232448  # the most dynamic shared memory an H100 block may use
+H100_SMS = 132
 
 
 def erf_poly(x: torch.Tensor) -> torch.Tensor:
@@ -76,20 +101,77 @@ def fused_conv_ln_gelu_reference(x, w, scale, bias, k: int, s: int,
 def _library() -> ctypes.CDLL:
     """Builds and loads csrc/conv.cu once per process."""
     lib = cuda_build.load("conv")
-    # x, w, scale, bias, out, B, L, C_in, C_out, k, s, approx, stream
-    lib.conv_ln_gelu_wmma.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 7
-                                      + [ctypes.c_void_p])
-    # ... with dtype before approx
-    lib.conv_ln_gelu_fma.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 8
-                                     + [ctypes.c_void_p])
-    for fn in (lib.conv_ln_gelu_wmma, lib.conv_ln_gelu_fma):
+    # x, w, scale, bias, out, B, L, C_in, C_out, k, s, approx, then the
+    # plan: stages, smem bytes, grid (tc); grid (row); dtype, rows, smem
+    # bytes (fma); then the stream
+    lib.conv_ln_gelu_tc.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 10 + [ctypes.c_void_p]
+    lib.conv_ln_gelu_row.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+    lib.conv_ln_gelu_fma.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 10 + [ctypes.c_void_p]
+    for fn in (lib.conv_ln_gelu_tc, lib.conv_ln_gelu_row, lib.conv_ln_gelu_fma):
         fn.restype = ctypes.c_int
     return lib
 
 
-def uses_tensor_cores(dtype: torch.dtype, c_in: int, c_out: int) -> bool:
-    """Whether the kernel takes its tensor-core (WMMA bf16) path."""
-    return dtype == torch.bfloat16 and c_in % WMMA_K_CHUNK == 0 and c_out in WMMA_C_OUT
+def uses_tensor_cores(dtype: torch.dtype, c_in: int, c_out: int, s: int) -> bool:
+    """Whether the kernel takes its tensor-core (TMA + wgmma bf16) path."""
+    return (dtype == torch.bfloat16 and c_in % TC_K_STEP == 0 and c_out in TC_C_OUT
+            and s <= TC_MAX_STRIDE)
+
+
+class ConvPlan(NamedTuple):
+    """How ``fused_conv_ln_gelu`` launches one call on the card."""
+    path: str        # "tc" (TMA + wgmma), "row" (a warp per 16 rows) or "fma"
+    t_out: int       # output rows per batch item
+    rows: int        # output rows per tile (tc, fma) or per warp (row)
+    stages: int      # ring stages (tc), else 0
+    smem_bytes: int  # dynamic shared memory per block
+    grid: int        # blocks
+
+
+def tc_stage_bytes(c_out: int) -> int:
+    """One ring stage: an A tile (64 rows x 64 channels) and a B tile (64
+    channels x c_out, as c_out / 64 atoms of 64 rows x 128 bytes)."""
+    return TC_ROWS * 128 + c_out // 64 * TC_K_STEP * 128
+
+
+def tc_smem_bytes(c_out: int, stages: int) -> int:
+    """The tensor-core kernel's shared memory (csrc/conv.cu tc_smem_bytes):
+    1024 bytes to align the base, the ring, the affine pairs (a float4 per
+    two columns), the LN exchange (2 x 2 x 64 floats), the barriers."""
+    return 1024 + stages * tc_stage_bytes(c_out) + 8 * c_out + 1024 + 16 * stages
+
+
+def fma_smem_bytes(rows: int, c_in: int, c_out: int, k: int, s: int) -> int:
+    """The FMA kernel's input window and f32 tile (csrc/conv.cu)."""
+    return (((rows - 1) * s + k) * c_in + rows * c_out) * 4
+
+
+def conv_plan(B: int, L: int, c_in: int, c_out: int, k: int, s: int, dtype: torch.dtype,
+              sms: int = H100_SMS) -> ConvPlan:
+    """The path, tile, ring, shared memory and grid of one call on a card
+    with ``sms`` SMs; raises if no path takes the shape."""
+    t_out = out_length(L, k, s)
+    if uses_tensor_cores(dtype, c_in, c_out, s):
+        fixed = tc_smem_bytes(c_out, 0)
+        stages = min(TC_MAX_STAGES, (MAX_SMEM - fixed) // (tc_stage_bytes(c_out) + 16))
+        tiles = B * -(-t_out // TC_ROWS)
+        return ConvPlan("tc", t_out, TC_ROWS, stages, tc_smem_bytes(c_out, stages),
+                        min(tiles, sms))
+    if dtype == torch.bfloat16 and c_in == 1 and c_out in ROW_C_OUT and k <= ROW_MAX_K:
+        warps = -(-B * t_out // ROW_M)
+        return ConvPlan("row", t_out, ROW_M, 0, 0,
+                        min(-(-warps // ROW_WARPS), ROW_BLOCKS_PER_SM * sms))
+    for rows in FMA_ROWS:
+        smem = fma_smem_bytes(rows, c_in, c_out, k, s)
+        if smem <= MAX_SMEM:
+            return ConvPlan("fma", t_out, rows, 0, smem, B * -(-t_out // rows))
+    raise ValueError(f"no conv kernel path takes C_in={c_in}, C_out={c_out}, k={k}, s={s}: "
+                     f"one output row's window and tile exceed {MAX_SMEM} bytes")
+
+
+@functools.cache
+def _sm_count(device: int) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def _check_cuda_inputs(x, w, scale, bias, k, s):
@@ -110,12 +192,38 @@ def _check_cuda_inputs(x, w, scale, bias, k, s):
     for name, t in (("x", x), ("w", w)):
         if not t.is_contiguous():
             raise ValueError(f"conv kernel needs contiguous {name}")
-        if t.data_ptr() % 16:  # the tensor-core path moves 16-byte vectors
+        if t.data_ptr() % 16:  # TMA and the 16-byte vector loads
             raise ValueError(f"conv kernel needs 16-byte aligned {name}")
     if not (0 < s <= k <= L):
         raise ValueError(f"conv kernel needs 0 < s <= k <= L, got s={s}, k={k}, L={L}")
     if B > 65535:
         raise ValueError(f"grid too large: B={B}")
+
+
+def launch_plan(x, w, scale, bias, k: int, s: int, approx_gelu: bool,
+                plan: ConvPlan) -> torch.Tensor:
+    """One launch of the kernel on checked CUDA inputs, as ``plan`` says;
+    counts nothing (``fused_conv_ln_gelu`` does)."""
+    B, L, C_in = x.shape
+    C_out = w.shape[2]
+    out = torch.empty(B, plan.t_out, C_out, dtype=x.dtype, device=x.device)
+    scale, bias = scale.float().contiguous(), bias.float().contiguous()
+    lib = _library()
+    args = (x.data_ptr(), w.data_ptr(), scale.data_ptr(), bias.data_ptr(), out.data_ptr(),
+            B, L, C_in, C_out, k, s, int(approx_gelu))
+    if plan.path == "tc":
+        err = cuda_build.launch(lib.conv_ln_gelu_tc, x.device.index, *args, plan.stages,
+                                plan.smem_bytes, plan.grid)
+    elif plan.path == "row":
+        err = cuda_build.launch(lib.conv_ln_gelu_row, x.device.index, *args, plan.grid)
+    else:
+        err = cuda_build.launch(lib.conv_ln_gelu_fma, x.device.index, *args,
+                                int(x.dtype == torch.bfloat16), plan.rows, plan.smem_bytes)
+    if err != 0:
+        raise RuntimeError(f"conv kernel launch failed ({plan.path} path): code {err} (> 0: a "
+                           f"CUDA error; -1: no tensor-map encoder; <= -1000: the encoder "
+                           f"refused a map, CUresult {-1000 - err})")
+    return out
 
 
 def fused_conv_ln_gelu(
@@ -134,21 +242,8 @@ def fused_conv_ln_gelu(
         raise ValueError(f"no conv kernel for device {x.device}")
     _check_cuda_inputs(x, w, scale, bias, k, s)
     B, L, C_in = x.shape
-    C_out = w.shape[2]
-    out = torch.empty(B, out_length(L, k, s), C_out, dtype=x.dtype, device=x.device)
-    scale, bias = scale.float().contiguous(), bias.float().contiguous()
-    lib = _library()
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        args = (x.data_ptr(), w.data_ptr(), scale.data_ptr(), bias.data_ptr(),
-                out.data_ptr(), B, L, C_in, C_out, k, s)
-        if uses_tensor_cores(x.dtype, C_in, C_out):
-            err = lib.conv_ln_gelu_wmma(*args, int(approx_gelu), stream)
-        else:
-            err = lib.conv_ln_gelu_fma(*args, int(x.dtype == torch.bfloat16),
-                                       int(approx_gelu), stream)
-    if err != 0:
-        raise RuntimeError(f"conv kernel launch failed: CUDA error {err}")
+    plan = conv_plan(B, L, C_in, w.shape[2], k, s, x.dtype, sms=_sm_count(x.device.index))
+    out = launch_plan(x, w, scale, bias, k, s, approx_gelu, plan)
     fused_conv_ln_gelu.launches += 1
     return out
 

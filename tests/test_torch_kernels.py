@@ -457,15 +457,113 @@ def test_copy_kernel_edges_on_gpu(cuda_device, nbytes, offset):
     assert torch.equal(out, x)
 
 
+# (B, L, C_in, C_out, k, s, approx gelu), and the path conv_plan gives bf16
+# (f32 always takes the FMA path)
+CONV_CASES = [
+    ((2, 4000, 1, 512, 10, 5, False), "row"),   # layer 0: C_in = 1
+    ((2, 801, 512, 512, 3, 2, False), "tc"),    # layers 1-4, ragged tile
+    ((3, 139, 512, 512, 2, 2, True), "tc"),     # layers 5-6, tanh GELU
+    ((2, 97, 8, 8, 3, 2, False), "fma"),        # the JAX package's test shape
+    ((1, 70, 64, 128, 3, 1, True), "tc"),       # stride 1, C_out 128
+    ((2, 803, 512, 512, 3, 2, False), "tc"),    # (L - k) % s == 0: reads row L - 1
+    ((2, 130, 512, 512, 2, 2, True), "tc"),     # T_out = 65: a last tile of 1 row
+    ((1, 255, 512, 512, 3, 2, False), "tc"),    # T_out = 127: a last tile of 63 rows
+    ((64, 399, 512, 512, 2, 2, False), "tc"),   # layer 6 at the step's B = 64
+    ((2, 300, 128, 256, 3, 2, False), "tc"),    # C_out 256
+    ((2, 301, 192, 384, 3, 3, True), "tc"),     # C_out 384, stride 3
+    ((2, 264, 64, 128, 4, 4, False), "tc"),     # the largest stride the map takes
+    ((2, 100, 32, 128, 3, 2, False), "fma"),    # C_in = 32: not a 64-channel step
+    ((2, 90, 64, 128, 5, 5, False), "fma"),     # stride 5: past the map's box
+    ((2, 4000, 1, 256, 10, 5, True), "row"),    # layer 0 at 256 channels
+    ((3, 1003, 1, 512, 16, 7, False), "row"),   # 16 taps: a whole mma k-step
+    ((2, 1000, 1, 512, 17, 5, False), "fma"),   # 17 taps: past the row path
+]
+
+
+@pytest.mark.parametrize("case, path", CONV_CASES)
+def test_conv_plan_paths_of_the_test_shapes(case, path):
+    B, L, c_in, c_out, k, s, _approx = case
+    assert conv.conv_plan(B, L, c_in, c_out, k, s, torch.bfloat16).path == path
+    assert conv.conv_plan(B, L, c_in, c_out, k, s, torch.float32).path == "fma"
+
+
+E2V_LAYERS = ((512, 10, 5),) + ((512, 3, 2),) * 4 + ((512, 2, 2),) * 2
+
+
+@pytest.mark.parametrize("B, samples, t_outs", [
+    (64, 64000, (12799, 6399, 3199, 1599, 799, 399, 199)),      # the fused step, 4 s
+    (16, 480000, (95999, 47999, 23999, 11999, 5999, 2999, 1499)),  # serving's 30 s bucket
+])
+def test_conv_plan_of_the_emotion2vec_front_end(B, samples, t_outs):
+    """Layer 0 on the row path, layers 1-6 on the tensor-core path with a
+    3-stage ring in 227,376 bytes and a block per SM walking the 64-row
+    tiles (a block per tile where there are fewer tiles than SMs); f32 on
+    the FMA path with the 32-row tile."""
+    L, c_in = samples, 1
+    for i, (c_out, k, s) in enumerate(E2V_LAYERS):
+        plan = conv.conv_plan(B, L, c_in, c_out, k, s, torch.bfloat16)
+        assert plan.t_out == t_outs[i] == conv.out_length(L, k, s)
+        if i == 0:
+            assert plan == conv.ConvPlan("row", t_outs[0], 16, 0, 0, 528)
+        else:
+            assert plan == conv.ConvPlan("tc", plan.t_out, 64, 3, 227376, 132)
+            tiles = B * -(-plan.t_out // 64)
+            assert conv.conv_plan(B, L, c_in, c_out, k, s, torch.bfloat16,
+                                  sms=10**6).grid == tiles
+        f32 = conv.conv_plan(B, L, c_in, c_out, k, s, torch.float32)
+        assert f32.path == "fma" and f32.rows == 32 and f32.smem_bytes <= conv.MAX_SMEM
+        L, c_in = plan.t_out, c_out
+
+
+@pytest.mark.parametrize("c_out, stages, smem", [
+    (128, 8, 199808), (256, 5, 208976), (384, 3, 177200), (512, 3, 227376)])
+def test_conv_plan_ring_fits_shared_memory(c_out, stages, smem):
+    """The most stages (at most 8) whose ring, affine pairs, LN exchange and
+    barriers fit the 232,448 bytes a block may use, with 1024 to align."""
+    plan = conv.conv_plan(2, 1000, 512, c_out, 3, 2, torch.bfloat16)
+    assert (plan.stages, plan.smem_bytes) == (stages, smem)
+    assert smem == conv.tc_smem_bytes(c_out, stages) <= conv.MAX_SMEM
+    assert stages == conv.TC_MAX_STAGES or conv.tc_smem_bytes(c_out, stages + 1) > conv.MAX_SMEM
+    assert conv.tc_stage_bytes(c_out) == 8192 * (1 + c_out // 64)
+
+
+@pytest.mark.parametrize("L, k, s", [(803, 3, 2), (801, 3, 2), (130, 2, 2), (255, 3, 2),
+                                     (12799, 3, 2), (264, 4, 4), (267, 4, 4), (70, 3, 1)])
+def test_conv_plan_last_row_reads_inside_the_map(L, k, s):
+    """The last valid output row's last tap reads input row (t_out - 1) s +
+    k - 1 <= L - 1 (= L - 1 when (L - k) % s == 0), and every box of the
+    last tile starts at a row of the x map (0 .. L - 1)."""
+    plan = conv.conv_plan(1, L, 64, 128, k, s, torch.bfloat16)
+    assert plan.path == "tc"
+    last = (plan.t_out - 1) * s + k - 1
+    assert last <= L - 1 and (last == L - 1) == ((L - k) % s == 0)
+    t0 = (-(-plan.t_out // plan.rows) - 1) * plan.rows
+    assert all(0 <= t0 * s + j <= L - 1 for j in range(k))
+
+
+@pytest.mark.parametrize("c_in", [32, 64, 96, 512])
+def test_every_shape_the_wmma_path_took_still_runs(c_in):
+    """bf16, C_in % 32 == 0, C_out in {128, ..., 512}, any k >= s: the
+    tensor-core path where C_in % 64 == 0 and s <= 4, else the FMA path;
+    never a plan that raises."""
+    for c_out in (128, 256, 384, 512):
+        for s in (1, 2, 3, 4, 5):
+            for k in (s, s + 1):
+                plan = conv.conv_plan(2, 3 * k, c_in, c_out, k, s, torch.bfloat16)
+                tc = c_in % 64 == 0 and s <= 4
+                assert plan.path == ("tc" if tc else "fma")
+                assert conv.uses_tensor_cores(torch.bfloat16, c_in, c_out, s) == tc
+                assert plan.smem_bytes <= conv.MAX_SMEM
+
+
+def test_conv_plan_raises_where_no_path_fits():
+    with pytest.raises(ValueError, match="no conv kernel path"):
+        conv.conv_plan(1, 4, 60000, 128, 1, 1, torch.float32)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("B, L, c_in, c_out, k, s, approx", [
-    (2, 4000, 1, 512, 10, 5, False),   # layer 0: C_in = 1 (FMA path)
-    (2, 801, 512, 512, 3, 2, False),   # layers 1-4 (tensor cores in bf16), ragged tile
-    (3, 139, 512, 512, 2, 2, True),    # layers 5-6, tanh GELU
-    (2, 97, 8, 8, 3, 2, False),        # the JAX package's test shape (FMA path)
-    (1, 70, 64, 128, 3, 1, True),      # stride 1, C_out 128 (tensor cores in bf16)
-])
+@pytest.mark.parametrize("B, L, c_in, c_out, k, s, approx", [case for case, _ in CONV_CASES])
 def test_conv_kernel_matches_plain_on_gpu(cuda_device, dtype, B, L, c_in, c_out, k, s, approx):
     x, w, scale, bias = _conv_inputs(B, L, c_in, c_out, k, dtype, cuda_device, seed=L)
     before = conv.fused_conv_ln_gelu.launches
@@ -476,6 +574,20 @@ def test_conv_kernel_matches_plain_on_gpu(cuda_device, dtype, B, L, c_in, c_out,
     assert torch.isfinite(out).all()
     ref = conv.fused_conv_ln_gelu_reference(x, w, scale, bias, k, s, approx)
     torch.testing.assert_close(out.float(), ref.float(), **CONV_TOL[dtype])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B, L, k, s", [(3, 801, 3, 2), (64, 399, 2, 2)])
+def test_conv_persistent_grid_matches_tile_grid_on_gpu(cuda_device, B, L, k, s):
+    """Blocks walking the tiles (the ring running on across tiles) give the
+    bits of a block per tile."""
+    x, w, scale, bias = _conv_inputs(B, L, 512, 512, k, torch.bfloat16, cuda_device, seed=B)
+    plans = [conv.conv_plan(B, L, 512, 512, k, s, torch.bfloat16, sms=sms)
+             for sms in (10**6, 8, 5)]
+    assert plans[0].grid > 8 and (plans[1].grid, plans[2].grid) == (8, 5)
+    outs = [conv.launch_plan(x, w, scale, bias, k, s, False, p) for p in plans]
+    torch.cuda.synchronize()
+    assert torch.equal(outs[0], outs[1]) and torch.equal(outs[0], outs[2])
 
 
 @pytest.mark.cuda
