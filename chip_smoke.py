@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drives the PyTorch port's paths on one NVIDIA GPU and checks them: the
-serving path, the fused-norm probe, the conv front end through its kernel
-and the fused extract+train step.
+serving path, the fused-norm probe, the conv front end through its kernel,
+the fused extract+train step and the feature-level trainer.
 
     python3 chip_smoke.py
 
@@ -64,7 +64,24 @@ Phases (any failure raises and the script exits non-zero without a result):
    the same state and generator seed must agree, with one filler row
    (all samples padded, ``row_valid`` False) in the noisy batch. Prints
    ms/step, training clips/s and a torch.profiler breakdown of one step.
-8. prints the ``nvidia-smi`` line, a ``kernels`` JSON line (all four
+8. the feature-level trainer: a synthetic IEMOCAP-layout clean store and
+   its noisy twin at the corpus's size (5531 clips over Ses01-Ses05,
+   50-1000 frames, 768-d f32, 3.8 GB each) written with the port's
+   ``write_feature_store`` to a temporary directory, then ``cli.main(["dad",
+   "--corpus", "iemocap", "--clean", ..., "--noisy", ..., "--fold", "0",
+   "--epochs", "3", "--warmup-epochs", "1"])`` on the card (the iemocap
+   preset at full width). Checks rc 0, a finite history of the right
+   lengths, that the best .pth reloads and re-validates to the logged best
+   noisy WA, and noisy test WA above chance; then ``--scan-chunk 4`` must
+   give the same history, the pinned prefetch path must deliver batches
+   unaltered under a slow consumer, and the same trainer on the card and
+   on the CPU, from one pretrain head and fed the same draws through its
+   hook for 3 steps, must agree. Prints ms/step (epoch 2), epoch and
+   validation seconds, clips/s, H2D MB per step (f32 and bf16 transfer),
+   the kernels' launches on this path (none lies on it) and a
+   torch.profiler breakdown of one step. ``--only trainer`` runs this
+   phase alone.
+9. prints the ``nvidia-smi`` line, a ``kernels`` JSON line (all four
    kernels; the conv entry sums its seven layers' numbers), then the
    result line ``{"ok": true, "device": {...}}`` last.
 """
@@ -74,11 +91,14 @@ from __future__ import annotations
 import argparse
 import base64
 import concurrent.futures
+import contextlib
 import dataclasses
+import itertools
 import json
 import math
 import subprocess
 import sys
+import tempfile
 import time
 import urllib.request
 
@@ -86,6 +106,9 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from robust_speech_emotion_recognition_via_dynamic_asymmetric_distillation_in_noisy_environments_tpu_torch import (
+    cli,
+)
 from robust_speech_emotion_recognition_via_dynamic_asymmetric_distillation_in_noisy_environments_tpu_torch.configs import (
     EncoderConfig,
     dad_preset,
@@ -93,12 +116,23 @@ from robust_speech_emotion_recognition_via_dynamic_asymmetric_distillation_in_no
 from robust_speech_emotion_recognition_via_dynamic_asymmetric_distillation_in_noisy_environments_tpu_torch.dad import (
     StepScalars,
 )
+from robust_speech_emotion_recognition_via_dynamic_asymmetric_distillation_in_noisy_environments_tpu_torch.dad.train_step import (
+    draw_feature_step,
+)
+from robust_speech_emotion_recognition_via_dynamic_asymmetric_distillation_in_noisy_environments_tpu_torch.data import (
+    prefetch,
+    write_feature_store,
+)
+from robust_speech_emotion_recognition_via_dynamic_asymmetric_distillation_in_noisy_environments_tpu_torch.data.batching import (
+    paired_epoch,
+)
 from robust_speech_emotion_recognition_via_dynamic_asymmetric_distillation_in_noisy_environments_tpu_torch.eval.serving import (
     EmotionPredictor,
     PredictionServer,
 )
 from robust_speech_emotion_recognition_via_dynamic_asymmetric_distillation_in_noisy_environments_tpu_torch.models.convert import (
     fairseq_to_torch_encoder,
+    load_torch_file,
     torch_state_dict_to_ssrl,
 )
 from robust_speech_emotion_recognition_via_dynamic_asymmetric_distillation_in_noisy_environments_tpu_torch.models.emotion2vec import (
@@ -106,6 +140,9 @@ from robust_speech_emotion_recognition_via_dynamic_asymmetric_distillation_in_no
 )
 from robust_speech_emotion_recognition_via_dynamic_asymmetric_distillation_in_noisy_environments_tpu_torch.models.extract import (
     FeatureExtractor,
+)
+from robust_speech_emotion_recognition_via_dynamic_asymmetric_distillation_in_noisy_environments_tpu_torch.models.heads import (
+    SSRLState,
 )
 from robust_speech_emotion_recognition_via_dynamic_asymmetric_distillation_in_noisy_environments_tpu_torch.models.layers import (
     ConvFeatureExtractor,
@@ -129,6 +166,10 @@ from robust_speech_emotion_recognition_via_dynamic_asymmetric_distillation_in_no
 )
 from robust_speech_emotion_recognition_via_dynamic_asymmetric_distillation_in_noisy_environments_tpu_torch.parallel.fused import (
     extract,
+)
+from robust_speech_emotion_recognition_via_dynamic_asymmetric_distillation_in_noisy_environments_tpu_torch.train import (
+    CrossDomainTrainer,
+    dad_trainer,
 )
 
 PORT_PKG = attention.__name__.split(".")[0]
@@ -1089,15 +1130,373 @@ def run_training_slice(enc_sd, clean: FusedBatch, noisy: FusedBatch) -> dict:
     return dict(launches=launches, ms_step=ms_step)
 
 
+# the feature-level trainer (phase 8): the 4-class IEMOCAP clip count
+# (ang 1103, hap + exc 1636, neu 1708, sad 1084), 768-d features with a
+# class-dependent mean, lognormal lengths of 50-1000 frames (1-20 s at 50
+# frames/s, mean ~225), and a noisy twin of each clip
+FEATURE_CLASSES = {"ang": 1103, "hap": 1636, "neu": 1708, "sad": 1084}
+FEATURE_DIM, FEATURE_FRAMES, FEATURE_NOISE_STD = 768, (50, 1000), 0.5
+FEATURE_EPOCHS, FEATURE_CHUNK, CARD_CPU_STEPS = 3, 4, 3
+# card vs CPU over the trainer's first steps and --scan-chunk vs per-step:
+# tests/test_torch_train_step.py's METRIC_TOL / STATE_TOL
+TRAINER_METRIC_TOL = dict(atol=2e-5, rtol=1e-4)
+TRAINER_STATE_TOL = dict(atol=2e-6, rtol=1e-4)
+
+
+def write_feature_corpus(root: str, seed: int) -> tuple:
+    """A clean and a noisy IEMOCAP-layout feature store (Ses01-Ses05) in
+    ``root`` through the port's ``write_feature_store``; returns their
+    directories and the corpus's sizes."""
+    rng = np.random.default_rng(seed)
+    labels = np.repeat(list(FEATURE_CLASSES), list(FEATURE_CLASSES.values()))
+    rng.shuffle(labels)
+    n = len(labels)
+    lengths = np.clip(rng.lognormal(np.log(200.0), 0.5, n), *FEATURE_FRAMES).astype(np.int64)
+    offsets = np.concatenate([[0], np.cumsum(lengths)[:-1]])
+    names = [f"Ses0{i % 5 + 1}{'FM'[i // 5 % 2]}_impro0{i % 7}_{'FM'[i // 5 % 2]}{i:04d}"
+             for i in range(n)]
+    class_ids = np.searchsorted(list(FEATURE_CLASSES), labels)  # names are sorted
+    means = rng.standard_normal((len(FEATURE_CLASSES), FEATURE_DIM), dtype=np.float32) * 0.5
+    clean = rng.standard_normal((int(lengths.sum()), FEATURE_DIM), dtype=np.float32)
+    for o, t, c in zip(offsets, lengths, class_ids):
+        clean[o:o + t] += means[c]
+    noisy = rng.standard_normal(clean.shape, dtype=np.float32)
+    noisy *= FEATURE_NOISE_STD
+    noisy += clean
+    dirs = (f"{root}/clean", f"{root}/root1-white-10db")
+    for d, flat in zip(dirs, (clean, noisy)):
+        write_feature_store(d, [flat[o:o + t] for o, t in zip(offsets, lengths)],
+                            labels=labels.tolist(), utt_names=names)
+    return dirs, dict(clips=n, frames=int(lengths.sum()), mean_frames=float(lengths.mean()),
+                      max_frames=int(lengths.max()), store_gb=clean.nbytes / 1e9)
+
+
+class TrainerProbe:
+    """Measures the trainer from outside while ``cli.main`` drives it: a
+    CUDA event recorded before every training step (on the stream, so the
+    spacing of two is the device's time per step, idle gaps included), the
+    bytes of the step's two batches (f32 leaves and the rest), and host
+    clocks around ``train_epoch`` and ``validate``, each of which ends in a
+    host read of device values. Keeps the trainers it saw. The patches are
+    undone on exit."""
+
+    def __init__(self):
+        self.events, self.epochs, self.validations, self.trainers = [], [], [], []
+        self.step_bytes = []
+
+    def __enter__(self) -> "TrainerProbe":
+        cls = dad_trainer.CrossDomainTrainer
+        self._saved = dict(make=dad_trainer.make_dad_train_step, init=cls.__init__,
+                           train_epoch=cls.train_epoch, validate=cls.validate)
+        saved, probe = self._saved, self
+
+        def make(*args, **kwargs):
+            step = saved["make"](*args, **kwargs)
+
+            def timed(state, clean, noisy, *a, **kw):
+                event = torch.cuda.Event(enable_timing=True)
+                event.record()
+                probe.events.append(event)
+                leaves = [x for b in (clean, noisy) for x in b if x is not None]
+                f32 = sum(x.nbytes for x in leaves if x.dtype == torch.float32)
+                probe.step_bytes.append((f32, sum(x.nbytes for x in leaves) - f32))
+                return step(state, clean, noisy, *a, **kw)
+
+            return timed
+
+        def init(obj, *args, **kwargs):
+            saved["init"](obj, *args, **kwargs)
+            probe.trainers.append(obj)
+
+        def train_epoch(obj, epoch):
+            first, t0 = len(probe.events), time.perf_counter()
+            out = saved["train_epoch"](obj, epoch)
+            probe.epochs.append(dict(epoch=epoch, seconds=time.perf_counter() - t0,
+                                     first=first, last=len(probe.events)))
+            return out
+
+        def validate(obj, it, domain, epoch=0):
+            t0 = time.perf_counter()
+            out = saved["validate"](obj, it, domain, epoch)
+            probe.validations.append(dict(epoch=epoch, domain=domain,
+                                          seconds=time.perf_counter() - t0))
+            return out
+
+        dad_trainer.make_dad_train_step = make
+        cls.__init__, cls.train_epoch, cls.validate = init, train_epoch, validate
+        return self
+
+    def __exit__(self, *exc) -> None:
+        cls = dad_trainer.CrossDomainTrainer
+        dad_trainer.make_dad_train_step = self._saved["make"]
+        cls.__init__, cls.train_epoch = self._saved["init"], self._saved["train_epoch"]
+        cls.validate = self._saved["validate"]
+
+    def step_ms(self, epoch: int) -> list:
+        rec = next(e for e in self.epochs if e["epoch"] == epoch)
+        ev = self.events[rec["first"]:rec["last"]]
+        return [a.elapsed_time(b) for a, b in zip(ev, ev[1:])]
+
+    def h2d_mb_per_step(self, epoch: int) -> dict:
+        """Host-to-device MB per step of ``epoch``: the batches as shipped
+        in float32, and with float32 leaves shipped as bfloat16."""
+        rec = next(e for e in self.epochs if e["epoch"] == epoch)
+        got = self.step_bytes[rec["first"]:rec["last"]]
+        return dict(float32=sum(f + o for f, o in got) / len(got) / 1e6,
+                    bfloat16=sum(f / 2 + o for f, o in got) / len(got) / 1e6)
+
+
+def kernel_launches() -> dict:
+    return dict(flash_attention=attention.flash_attention.launches,
+                fused_layernorm=fused_norm.fused_layernorm.launches,
+                fused_conv_ln_gelu=conv.fused_conv_ln_gelu.launches,
+                copy_rows=fused_norm.copy_rows.launches)
+
+
+def zero_kernel_launches() -> None:
+    attention.flash_attention.launches = fused_norm.fused_layernorm.launches = 0
+    conv.fused_conv_ln_gelu.launches = fused_norm.copy_rows.launches = 0
+
+
+def read_history(trainer) -> dict:
+    with open(f"{trainer.results_dir}/reports/training_history.json") as f:
+        return json.load(f)
+
+
+def close(a, b, tol: dict) -> bool:
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    return a.shape == b.shape and bool(np.all(np.abs(a - b) <= tol["atol"] + tol["rtol"] * np.abs(b)))
+
+
+def check_trainer_run(trainer, epochs: int) -> dict:
+    """The checks of one ``cli dad`` run: finite history of the right
+    lengths, the best .pth reloads and re-validates to the logged best noisy
+    WA, and the final test report beats chance."""
+    history = read_history(trainer)
+    post = epochs - trainer.cfg.warmup_epochs
+    for k in ("total_loss", "supervised_ce_loss", "consistency_loss", "ecda_loss"):
+        if len(history[k]) != epochs or not np.all(np.isfinite(history[k])):
+            raise AssertionError(f"history {k}: {history[k]}")
+    for k in ("dacp_ema_thresholds", "dacp_class_quality", "ecda_class_attention"):
+        if len(history[k]) != post or not np.all(np.isfinite(history[k])):
+            raise AssertionError(f"history {k}: {history[k]}")
+    best = torch_state_dict_to_ssrl(load_torch_file(trainer.best_path))
+    trainer.state = trainer.state._replace(ssrl=SSRLState(
+        *({k: v.to(trainer.device) for k, v in p.items()} for p in best)))
+    revalidated = trainer.validate(trainer.noisy_val, "Best", 0)["weighted_accuracy"]
+    if revalidated != trainer.best_noisy_weighted_acc:
+        raise AssertionError(f"best .pth re-validates to noisy WA {revalidated}, "
+                             f"logged {trainer.best_noisy_weighted_acc}")
+    with open(f"{trainer.results_dir}/reports/FINAL_test_set_results.json") as f:
+        final = json.load(f)
+    test_wa = float(final["final_test_results"]["noisy_domain"]["weighted_accuracy"][:-1])
+    if not test_wa > 25.0:
+        raise AssertionError(f"noisy test WA {test_wa} % is not above chance")
+    return dict(best_noisy_wa=trainer.best_noisy_weighted_acc, best_epoch=trainer.best_results["epoch"],
+                noisy_test_wa=test_wa, losses=history["total_loss"],
+                consistency=history["consistency_loss"], ecda=history["ecda_loss"])
+
+
+def compare_histories(got: dict, want: dict) -> dict:
+    """``--scan-chunk`` run against the per-step run: every series within
+    TRAINER_METRIC_TOL; returns the largest difference of each."""
+    if sorted(got) != sorted(want):
+        raise AssertionError(f"history keys {sorted(got)} vs {sorted(want)}")
+    diffs = {k: float(np.max(np.abs(np.asarray(got[k], np.float64) - np.asarray(want[k]))))
+             for k in want}
+    bad = [k for k in want if not close(got[k], want[k], TRAINER_METRIC_TOL)]
+    if bad:
+        raise AssertionError(f"--scan-chunk {FEATURE_CHUNK} history differs from per-step at "
+                             f"{bad}: {diffs}")
+    return diffs
+
+
+def card_against_cpu(cfg, clean_store, noisy_store) -> dict:
+    """The same trainer on the card and on the CPU from one pretrain head
+    (anchors calibrated on each), fed the same draws through the hook for
+    its first steps at epoch 2's scalars (ECDA's weight is 0 at epoch 1,
+    where its ramp starts): anchors and metrics within
+    TRAINER_METRIC_TOL, the state within TRAINER_STATE_TOL. The consistency
+    and ECDA terms must carry weight."""
+    g = torch.Generator().manual_seed(5)
+    hidden, classes = cfg.hidden_dim, cfg.num_classes
+    pretrain = {"pre_net.weight": torch.randn(hidden, FEATURE_DIM, generator=g) * 0.03,
+                "pre_net.bias": torch.randn(hidden, generator=g) * 0.03,
+                "post_net.weight": torch.randn(classes, hidden, generator=g) * 0.06,
+                "post_net.bias": torch.zeros(classes)}
+    trainers = [CrossDomainTrainer(cfg, experiment_name=f"card_cpu_{d}", clean_store=clean_store,
+                                   noisy_store=noisy_store, pretrain_params=pretrain, device=d,
+                                   prefetch_depth=0)
+                for d in ("cuda", "cpu")]
+    card, cpu = trainers
+    anchors = [card.anchors.cpu(), cpu.anchors]
+    if not close(*anchors, TRAINER_METRIC_TOL):
+        raise AssertionError(f"anchors card {anchors[0].tolist()} vs CPU {anchors[1].tolist()}")
+    epoch = 2
+    scalars = StepScalars.for_epoch(cfg, epoch)
+    pairs = list(itertools.islice(paired_epoch(card.clean_train, card.noisy_train, epoch),
+                                  CARD_CPU_STEPS))
+    draws = [draw_feature_step(g, torch.from_numpy(n.feats), torch.from_numpy(n.padding_mask),
+                               cfg.augment) for _c, n in pairs]
+    worst = dict(metrics=0.0, scores=0.0, consistency=0.0, ecda=0.0)
+    for t in trainers:
+        t.step_draws = lambda epoch, step: draws[step]
+    for s, (clean_b, noisy_b) in enumerate(pairs):
+        out = []
+        for t in trainers:
+            (c, n), = prefetch([(clean_b, noisy_b)], depth=0, to_device=True, device=t.device)
+            t.state, m, tr = t.train_step(t.state, c, n, scalars, t.anchors, t.generator,
+                                          t._draws(epoch, s, n.feats, n.padding_mask))
+            out.append((m, tr))
+        (m_card, tr_card), (m_cpu, tr_cpu) = out
+        worst["consistency"] = max(worst["consistency"], float(m_cpu["consistency_loss"]))
+        worst["ecda"] = max(worst["ecda"], float(m_cpu["ecda_loss"]))
+        for k in m_cpu:
+            a, b = float(m_card[k]), float(m_cpu[k])
+            worst["metrics"] = max(worst["metrics"], abs(a - b))
+            if not close(a, b, TRAINER_METRIC_TOL):
+                raise AssertionError(f"step {s} {k}: card {a} vs CPU {b}")
+        sc_card, sc_cpu = tr_card["certainty_score"].cpu(), tr_cpu["certainty_score"]
+        worst["scores"] = max(worst["scores"], float((sc_card - sc_cpu).abs().max()))
+        if not close(sc_card, sc_cpu, TRAINER_METRIC_TOL):
+            raise AssertionError(f"step {s}: certainty scores differ by {worst['scores']}")
+    if not (worst["consistency"] > 0 and worst["ecda"] > 0):
+        raise AssertionError(f"card vs CPU: the consistency and ECDA terms stayed 0: {worst}")
+    state = {}
+    for name, a, b in (("student", card.state.ssrl.student, cpu.state.ssrl.student),
+                       ("teacher", card.state.ssrl.teacher, cpu.state.ssrl.teacher),
+                       ("adam mu", card.state.opt_state.mu, cpu.state.opt_state.mu),
+                       ("adam nu", card.state.opt_state.nu, cpu.state.opt_state.nu),
+                       ("dacp", card.state.dacp._asdict(), cpu.state.dacp._asdict())):
+        for k in b:
+            x, y = a[k].cpu(), b[k]
+            state[f"{name} {k}"] = float((x - y).abs().max())
+            if not close(x, y, TRAINER_STATE_TOL):
+                bad = int((~((x - y).abs() <= TRAINER_STATE_TOL["atol"]
+                             + TRAINER_STATE_TOL["rtol"] * y.abs())).sum())
+                raise AssertionError(f"{name} {k}: card vs CPU max |diff| {state[f'{name} {k}']:.3e}"
+                                     f", {bad} of {y.numel()} elements outside STATE_TOL")
+    return dict(anchors_card=anchors[0].tolist(), anchors_cpu=anchors[1].tolist(),
+                metrics_max_diff=worst["metrics"], scores_max_diff=worst["scores"],
+                max_consistency=worst["consistency"], max_ecda=worst["ecda"],
+                state_max_diff=max(state.values()))
+
+
+def check_prefetch_on_card(trainer, transfer_dtype, n_items: int = 6) -> float:
+    """The trainer's batches through the pinned-memory path with the
+    consumer kept slower than the copies (a device sleep per item), so
+    pinned buffers would be overwritten in flight if they were reused:
+    every batch must arrive equal to its host arrays (rounded through
+    ``transfer_dtype`` where given). Returns the seconds taken."""
+    t0 = time.perf_counter()
+    host = list(itertools.islice(paired_epoch(trainer.clean_train, trainer.noisy_train, 2),
+                                 n_items))
+    got = prefetch(iter(host), depth=2, to_device=True, transfer_fp32_as=transfer_dtype,
+                   device="cuda")
+    for i, ((hc, hn), (dc, dn)) in enumerate(zip(host, got)):
+        torch.cuda._sleep(20_000_000)  # ~10 ms of device time before the batch is read
+        for h, d in ((hc, dc), (hn, dn)):
+            want = torch.from_numpy(h.feats)
+            if transfer_dtype:
+                want = want.to(getattr(torch, transfer_dtype)).float()
+            if not torch.equal(d.feats.cpu(), want) or not torch.equal(
+                    d.padding_mask.cpu(), torch.from_numpy(h.padding_mask)):
+                raise AssertionError(f"prefetch ({transfer_dtype}): batch {i} arrived altered")
+    return time.perf_counter() - t0
+
+
+def run_feature_trainer() -> dict:
+    """Phase 8: ``cli dad --clean --noisy`` on the card at the iemocap
+    preset's full width."""
+    with tempfile.TemporaryDirectory(prefix="dad_feature_trainer_") as root, \
+            contextlib.chdir(root):  # the results directories are relative, as the reference's
+        t0 = time.perf_counter()
+        (clean_dir, noisy_dir), corpus = write_feature_corpus(root, seed=0)
+        write_s = time.perf_counter() - t0
+        print(f"train_features: corpus {json.dumps(corpus)}, generated and written in "
+              f"{write_s:.1f} s", flush=True)
+        argv = ["dad", "--corpus", "iemocap", "--clean", clean_dir, "--noisy", noisy_dir,
+                "--fold", "0", "--epochs", str(FEATURE_EPOCHS), "--warmup-epochs", "1"]
+
+        zero_kernel_launches()
+        with TrainerProbe() as probe:
+            t0 = time.perf_counter()
+            rc = cli.main(argv + ["--name", "per_step"])
+            run_s = time.perf_counter() - t0
+        launches = kernel_launches()
+        if rc != 0:
+            raise AssertionError(f"cli dad returned {rc}")
+        trainer = probe.trainers[-1]
+        checks = check_trainer_run(trainer, FEATURE_EPOCHS)
+        last = FEATURE_EPOCHS - 1
+        rec = next(e for e in probe.epochs if e["epoch"] == last)
+        steps = rec["last"] - rec["first"]
+        ms = probe.step_ms(last)
+        clips = 2 * min(steps * trainer.cfg.batch_size, trainer.clean_train.store.num)
+        timing_info = dict(
+            run_s=run_s, steps_per_epoch=steps,
+            ms_per_step_median=float(np.median(ms)), ms_per_step_range=[min(ms), max(ms)],
+            epoch_s=[e["seconds"] for e in probe.epochs],
+            validation_s={e["epoch"]: sum(v["seconds"] for v in probe.validations
+                                          if v["epoch"] == e["epoch"]) for e in probe.epochs},
+            clips_per_s=clips / rec["seconds"], kernel_launches=launches)
+        print("train_features: per-step run " + json.dumps(checks), flush=True)
+        print("train_features: times " + json.dumps(timing_info), flush=True)
+        h2d = probe.h2d_mb_per_step(last)
+        print(f"train_features: H2D per step (epoch {last}, {steps} steps): "
+              f"{h2d['float32']:.1f} MB as float32, {h2d['bfloat16']:.1f} MB with "
+              f"--transfer-dtype bfloat16", flush=True)
+        pf = [check_prefetch_on_card(trainer, d) for d in (None, "bfloat16")]
+        print(f"train_features: prefetch pinned path, batches equal to the host's under a slow "
+              f"consumer (float32 {pf[0]:.1f} s, bfloat16 {pf[1]:.1f} s)", flush=True)
+
+        # one step of the trainer's own, profiled: its draws, then the step
+        (c, n), = prefetch(itertools.islice(paired_epoch(trainer.clean_train,
+                                                         trainer.noisy_train, last), 1),
+                           depth=0, to_device=True, device=trainer.device)
+        scalars = StepScalars.for_epoch(trainer.cfg, last)
+        step = dad_trainer.make_dad_train_step(trainer.head, trainer.tx, trainer.cfg)
+        profile = profile_step(lambda: step(trainer.state, c, n, scalars, trainer.anchors,
+                                            trainer.generator,
+                                            trainer._draws(last, 0, n.feats, n.padding_mask)))
+        profile["batch_frames"] = int(n.feats.shape[1])
+        print("profile: feature train step " + json.dumps(profile), flush=True)
+        history = read_history(trainer)
+        cfg, stores = trainer.cfg, (trainer.clean_store, trainer.noisy_store)
+        del trainer, probe, c, n
+
+        with TrainerProbe() as probe_chunk:
+            rc = cli.main(argv + ["--name", "chunk", "--scan-chunk", str(FEATURE_CHUNK)])
+        if rc != 0:
+            raise AssertionError(f"cli dad --scan-chunk returned {rc}")
+        chunked = probe_chunk.trainers[-1]
+        diffs = compare_histories(read_history(chunked), history)
+        chunk_s = [e["seconds"] for e in probe_chunk.epochs]
+        print(f"train_features: --scan-chunk {FEATURE_CHUNK} history equals per-step within "
+              f"METRIC_TOL, max |diff| by series {json.dumps(diffs)}; epoch s {chunk_s}",
+              flush=True)
+        del chunked, probe_chunk
+
+        # DACP opened, so that the consistency and ECDA terms carry weight
+        cpu_cfg = dataclasses.replace(cfg, dropout_rate=0.0, results_base_dir="card_cpu",
+                                      dacp=dataclasses.replace(cfg.dacp, **DACP_OPEN))
+        t0 = time.perf_counter()
+        report = card_against_cpu(cpu_cfg, *stores)
+        print(f"train_features: card vs CPU, {CARD_CPU_STEPS} steps from one pretrain head, the "
+              f"same draws through the hook ({time.perf_counter() - t0:.1f} s): "
+              + json.dumps(report), flush=True)
+    return dict(timing=timing_info, checks=checks)
+
+
 T_START = time.perf_counter()
 
 
 def parse_args(argv=None) -> argparse.Namespace:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    p.add_argument("--only", choices=("attention", "conv"),
+    p.add_argument("--only", choices=("attention", "conv", "trainer"),
                    help="attention: build and run phases 1-3 only; conv: build conv.cu and "
                         "run phases 1, 2 and 6, then the conv grid comparison (to time two "
-                        "checkouts in one call)")
+                        "checkouts in one call); trainer: build nothing, run phase 8 only")
     return p.parse_args(argv)
 
 
@@ -1113,10 +1512,11 @@ def main(argv=None) -> int:
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
 
-    sources = (args.only,) if args.only else SOURCES
+    sources = {None: SOURCES, "trainer": ()}.get(args.only, (args.only,))
     t0 = time.perf_counter()
-    with concurrent.futures.ThreadPoolExecutor(len(sources)) as pool:
-        list(pool.map(cuda_build.build, sources))
+    if sources:
+        with concurrent.futures.ThreadPoolExecutor(len(sources)) as pool:
+            list(pool.map(cuda_build.build, sources))
     print(f"build: {', '.join(sources)} in {time.perf_counter() - t0:.1f} s", flush=True)
 
     def result(**extra) -> str:
@@ -1124,7 +1524,9 @@ def main(argv=None) -> int:
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
             "count": torch.cuda.device_count()}})
 
-    if args.only == "conv":
+    if args.only == "trainer":
+        run_feature_trainer()
+    elif args.only == "conv":
         # the serving slice's encoder weights and the training slice's noisy batch
         enc_cfg = EncoderConfig(dtype="bfloat16", use_flash_attention=True)
         enc_sd = fairseq_to_torch_encoder(random_fairseq_state_dict(enc_cfg, seed=0), enc_cfg)
@@ -1146,6 +1548,9 @@ def main(argv=None) -> int:
     clean, noisy = training_batches()
     conv_info = run_conv_phase(slice_info["enc_sd"], noisy.wav, noisy.wav_mask)
     train = run_training_slice(slice_info["enc_sd"], clean, noisy)
+    del clean, noisy
+    torch.cuda.empty_cache()
+    run_feature_trainer()
 
     def entry(name, source, replaces, launches, r):
         return dict(name=name, route="cuda", source=f"{PORT_PKG}/csrc/{source}",

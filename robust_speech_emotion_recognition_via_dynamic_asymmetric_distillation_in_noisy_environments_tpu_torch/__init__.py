@@ -4,7 +4,8 @@ A second package beside the JAX reference, module for module: each file
 here has its counterpart at the same relative path in the JAX package.
 It imports ``torch`` and ``numpy`` only. Entry points (``FeatureExtractor``,
 ``EmotionPredictor``, ``PredictionServer``, ``cli serve``) run on the GPU
-unless the caller passes ``device="cpu"``.
+unless the caller passes ``device="cpu"``; so do ``CrossDomainTrainer``
+and ``cli dad``.
 
 Ported so far:
 - the wav -> emotion serving path (configs, encoder, head, extraction,
@@ -15,5 +16,9 @@ Ported so far:
 - every other TPU kernel of the JAX package as a Hopper kernel with its
   plain version: fused LayerNorm and the copy probe (``csrc/fused_norm.cu``)
   and conv + LN + GELU (``csrc/conv.cu``), reached through the ops API and
-  ``ops/norm_probe.py``: as in the JAX package, no model code calls them.
+  ``ops/norm_probe.py``: as in the JAX package, no model code calls them;
+- the feature-level DAD trainer (``train/dad_trainer.py``, ``cli dad
+  --clean --noisy``) and the host plumbing under it: feature stores, fold
+  splits, bucketed batching, the prefetch pipeline, metrics, reports,
+  anchor calibration, the chunked epoch runner, checkpoints.
 """

@@ -23,6 +23,7 @@ from .train_step import (
     set_learning_rate,
     smoothed_ce,
 )
+from .calibrate import run_anchor_calibration
 
 __all__ = [
     "weak_augment",
@@ -48,4 +49,5 @@ __all__ = [
     "make_eval_step",
     "set_learning_rate",
     "smoothed_ce",
+    "run_anchor_calibration",
 ]

@@ -26,23 +26,14 @@ import torch
 import torch.nn.functional as F
 from torch.func import functional_call
 
-from ..configs import DADConfig
+from ..configs import AugmentConfig, DADConfig
+from ..data.batching import Batch
 from ..models.heads import DADHead, SSRLState, ema_update, init_ssrl
-from .augment import StrongDraws, strong_augment, weak_augment
+from .augment import StrongDraws, draw_strong, strong_augment, weak_augment
 from .dacp import DACPState, dacp_epoch_update, dacp_mask, fixed_threshold_mask, init_dacp
 from .ecda import ecda_loss
 
 Params = Dict[str, torch.Tensor]
-
-
-class Batch(NamedTuple):
-    """A feature-level batch (the data layer's ``Batch``)."""
-
-    feats: torch.Tensor  # (B, T, D) float32
-    padding_mask: torch.Tensor  # (B, T) bool, True = padded frame
-    labels: torch.Tensor  # (B,) int, -1 where absent
-    ids: Optional[torch.Tensor]  # (B,) clip indices, or None
-    row_valid: torch.Tensor  # (B,) bool, False = padded row
 
 
 class AdamState(NamedTuple):
@@ -177,6 +168,16 @@ class StepDraws(NamedTuple):
     inject: Optional[torch.Tensor] = None  # (B, T) standard normal (fused step)
     weak: Optional[torch.Tensor] = None  # (B, T', D) standard normal
     strong: Optional[StrongDraws] = None
+
+
+def draw_feature_step(generator: Optional[torch.Generator], feats: torch.Tensor,
+                      padding_mask: torch.Tensor, cfg: AugmentConfig) -> StepDraws:
+    """A feature step's weak and strong draws at the shape of ``feats``, in
+    a fixed order (weak noise, then the strong draws); the step's dropout
+    then draws from the same generator."""
+    weak = torch.randn(feats.shape, generator=generator, device=feats.device,
+                       dtype=feats.dtype)
+    return StepDraws(weak=weak, strong=draw_strong(generator, feats, cfg, padding_mask))
 
 
 def dad_losses(

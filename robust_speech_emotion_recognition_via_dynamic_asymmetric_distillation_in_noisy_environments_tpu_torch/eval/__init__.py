@@ -1,3 +1,29 @@
+from .metrics import (
+    accuracy,
+    balanced_accuracy,
+    confusion_matrix,
+    evaluate_domain,
+    f1_scores,
+    precision_recall_fscore_support,
+)
+from .reports import (
+    best_detailed_results,
+    final_test_report,
+    save_confusion_matrices,
+)
 from .serving import FRAME_BUCKETS, EmotionPredictor, PredictionServer
 
-__all__ = ["FRAME_BUCKETS", "EmotionPredictor", "PredictionServer"]
+__all__ = [
+    "accuracy",
+    "balanced_accuracy",
+    "confusion_matrix",
+    "f1_scores",
+    "precision_recall_fscore_support",
+    "evaluate_domain",
+    "best_detailed_results",
+    "final_test_report",
+    "save_confusion_matrices",
+    "FRAME_BUCKETS",
+    "EmotionPredictor",
+    "PredictionServer",
+]

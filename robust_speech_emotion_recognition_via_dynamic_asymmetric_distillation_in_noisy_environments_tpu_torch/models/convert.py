@@ -11,8 +11,11 @@
   becomes ``weight``.
   The same walk converts a flax ``DADHead`` tree.
 - DAD SSRL checkpoints: ``student_encoder.pre_net.*`` /
-  ``student_classifier.fc_layer.*`` (and ``teacher_*``) -> ``SSRLState``
-  of two ``DADHead`` state dicts.
+  ``student_classifier.fc_layer.*`` (and ``teacher_*``) <-> ``SSRLState``
+  of two ``DADHead`` state dicts (``torch_state_dict_to_ssrl``,
+  ``ssrl_to_torch_state_dict``, ``save_torch_file``).
+- pretrain-head checkpoints (``pre_net.*`` / ``post_net.*``) ->
+  ``PretrainHead`` state dicts (``load_pretrain_head_checkpoint``).
 - ``flax_train_state_to_torch``: a JAX ``DADTrainState`` (numpy leaves)
   -> the port's, optimizer and DACP state included, so both frameworks can
   start from one state.
@@ -207,6 +210,38 @@ def torch_state_dict_to_ssrl(sd: Mapping[str, Any]) -> SSRLState:
         return {k: _t(sd[f"{role}_{k}"]).float() for k in _HEAD_KEYS}
 
     return SSRLState(student=one("student"), teacher=one("teacher"))
+
+
+def ssrl_to_torch_state_dict(state: SSRLState) -> Dict[str, torch.Tensor]:
+    """The reverse: the reference SSRLModel state dict layout, contiguous f32
+    tensors on the CPU, so that the reference's scripts and the JAX
+    package's ``torch_state_dict_to_ssrl`` load it."""
+    out = {}
+    for role in ("student", "teacher"):
+        params = getattr(state, role)
+        for k in _HEAD_KEYS:
+            out[f"{role}_{k}"] = params[k].detach().to("cpu", torch.float32).contiguous()
+    return out
+
+
+def save_torch_file(obj: Mapping[str, Any], path: str) -> None:
+    """``torch.save`` of a state dict, every array as a CPU tensor."""
+    torch.save({k: _t(v) if hasattr(v, "shape") else v for k, v in obj.items()}, path)
+
+
+# ---------------------------------------------------------------------------
+# pretrain head (pre_net / post_net): the checkpoint is already the
+# ``PretrainHead`` state dict's layout
+# ---------------------------------------------------------------------------
+
+_PRETRAIN_KEYS = ("pre_net.weight", "pre_net.bias", "post_net.weight", "post_net.bias")
+
+
+def load_pretrain_head_checkpoint(path: str) -> Dict[str, torch.Tensor]:
+    """A pretrain ``best_model_fold_N.ckpt`` -> ``PretrainHead`` state dict
+    (f32 CPU tensors), the input of ``heads.load_pretrain_into_ssrl``."""
+    sd = load_torch_file(path)
+    return {k: sd[k].float() for k in _PRETRAIN_KEYS}
 
 
 # ---------------------------------------------------------------------------

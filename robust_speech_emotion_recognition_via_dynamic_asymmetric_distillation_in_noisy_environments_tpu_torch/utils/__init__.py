@@ -1,4 +1,5 @@
 from .device import resolve_device
+from .io import dump_json, load_json
 from .logging import get_logger
 
-__all__ = ["get_logger", "resolve_device"]
+__all__ = ["dump_json", "get_logger", "load_json", "resolve_device"]
