@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drives the PyTorch port's paths on one NVIDIA GPU and checks them: the
 serving path, the fused-norm probe, the conv front end through its kernel,
-the fused extract+train step and the feature-level trainer.
+the fused extract+train step, the feature-level trainer and the fused
+wav->train trainer.
 
     python3 chip_smoke.py
 
@@ -12,9 +13,10 @@ Phases (any failure raises and the script exits non-zero without a result):
 2. build: compiles every CUDA source of the port with nvcc (sm_90a), one
    nvcc per source, all started together, and prints the build seconds.
 3. kernel vs plain: the attention kernel against its plain PyTorch version
-   at the serving shapes (B=16, H=12, D=64, N in {49, 399, 1499}), bf16 and
-   f32, and the fused step's (B=64, N=199, bf16), with suffix padding and
-   one fully masked batch row, on contiguous operands and on the encoder's
+   at B=16, H=12, D=64 and the frame count of every wav bucket (N in {49,
+   99, 199, 399, 799, 1499}) in bf16 and at N in {49, 399, 1499} in f32, and
+   at the fused steps' B=64 (N in {199, 799, 1499}, bf16), with suffix
+   padding and one fully masked batch row, on contiguous operands and on the encoder's
    strided views; times the kernel in turns with torch's
    scaled_dot_product_attention (a yardstick only: the port never calls
    it) with the measures of phase 5 below, the plain version's call ms,
@@ -73,29 +75,55 @@ Phases (any failure raises and the script exits non-zero without a result):
    preset at full width). Checks rc 0, a finite history of the right
    lengths, that the best .pth reloads and re-validates to the logged best
    noisy WA, and noisy test WA above chance; then ``--scan-chunk 4`` must
-   give the same history, the pinned prefetch path must deliver batches
+   give the same history, resident and with ``--resident off``, the pinned prefetch path must deliver batches
    unaltered under a slow consumer, and the same trainer on the card and
    on the CPU, from one pretrain head and fed the same draws through its
    hook for 3 steps, must agree. Prints ms/step (epoch 2), epoch and
    validation seconds, clips/s, H2D MB per step (f32 and bf16 transfer),
    the kernels' launches on this path (none lies on it) and a
-   torch.profiler breakdown of one step. ``--only trainer`` runs this
-   phase alone.
-9. prints the ``nvidia-smi`` line, a ``kernels`` JSON line (all four
-   kernels; the conv entry sums its seven layers' numbers), then the
-   result line ``{"ok": true, "device": {...}}`` last.
+   torch.profiler breakdown of one step. The fold's stores are resident on
+   the card (``--resident auto``), and the same first steps of a resident
+   and a ``--resident off`` trainer from one seed must agree.
+   ``--only trainer`` runs this phase alone.
+9. the fused trainer: a synthetic IEMOCAP-layout wav corpus (5531 clips
+   over Ses01-Ses05 with an ``.emo`` sidecar, 16 kHz int16, lognormal
+   lengths of mean ~4.5 s clipped to 0.6-30 s, a tone per class) written
+   with the port's ``write_wav`` and ``write_manifest``, and a random
+   emotion2vec-base checkpoint, then ``cli.main(["dad", "--corpus",
+   "iemocap", "--from-wav", ..., "--checkpoint", ..., "--fold", "0",
+   "--epochs", "3", "--warmup-epochs", "1", "--snr", "10"])`` on the card:
+   the iemocap preset at full width, bf16, attention through the kernel,
+   the corpus resident. Checks rc 0, the resident corpus, the attention
+   launches (12 per extraction batch of both startup passes and per
+   training step; the other kernels none), the history, the best .pth
+   re-validating to the logged best noisy WA, noisy test WA above chance,
+   the final report; then a resident and a streamed trainer over the same
+   3 steps from one seed; then a second startup whose encoder takes the
+   plain attention path extracts its own stores, which hold the kernel's
+   stores clip by clip, and a trainer on them holds the kernel trainer's
+   3 steps (metrics, every row's certainty score, the student's update,
+   the DACP state). Prints the startup
+   seconds by stage, resident MB, peak device memory, ms/step, epoch
+   seconds, clips/s, H2D bytes a step (resident and streamed), the wav
+   buckets of the steps and a torch.profiler breakdown of one step.
+   ``--only fused`` builds attention.cu and runs phases 1, 2 and 9.
+10. prints the ``nvidia-smi`` line, a ``kernels`` JSON line (all four
+    kernels; the conv entry sums its seven layers' numbers), then the
+    result line ``{"ok": true, "device": {...}}`` last.
 """
 
 from __future__ import annotations
 
 import argparse
 import base64
+import collections
 import concurrent.futures
 import contextlib
 import dataclasses
 import itertools
 import json
 import math
+import os
 import subprocess
 import sys
 import tempfile
@@ -119,9 +147,14 @@ from robust_speech_emotion_recognition_via_dynamic_asymmetric_distillation_in_no
 from robust_speech_emotion_recognition_via_dynamic_asymmetric_distillation_in_noisy_environments_tpu_torch.dad.train_step import (
     draw_feature_step,
 )
+from robust_speech_emotion_recognition_via_dynamic_asymmetric_distillation_in_noisy_environments_tpu_torch.audio.wavio import (
+    write_wav,
+)
 from robust_speech_emotion_recognition_via_dynamic_asymmetric_distillation_in_noisy_environments_tpu_torch.data import (
+    ManifestEntry,
     prefetch,
     write_feature_store,
+    write_manifest,
 )
 from robust_speech_emotion_recognition_via_dynamic_asymmetric_distillation_in_noisy_environments_tpu_torch.data.batching import (
     paired_epoch,
@@ -132,6 +165,7 @@ from robust_speech_emotion_recognition_via_dynamic_asymmetric_distillation_in_no
 )
 from robust_speech_emotion_recognition_via_dynamic_asymmetric_distillation_in_noisy_environments_tpu_torch.models.convert import (
     fairseq_to_torch_encoder,
+    load_emotion2vec_checkpoint,
     load_torch_file,
     torch_state_dict_to_ssrl,
 )
@@ -164,12 +198,17 @@ from robust_speech_emotion_recognition_via_dynamic_asymmetric_distillation_in_no
     make_fused_extract_train_step,
     precompute_clean_features,
 )
+from robust_speech_emotion_recognition_via_dynamic_asymmetric_distillation_in_noisy_environments_tpu_torch.parallel import (
+    resident as resident_mod,
+)
 from robust_speech_emotion_recognition_via_dynamic_asymmetric_distillation_in_noisy_environments_tpu_torch.parallel.fused import (
     extract,
 )
 from robust_speech_emotion_recognition_via_dynamic_asymmetric_distillation_in_noisy_environments_tpu_torch.train import (
     CrossDomainTrainer,
+    FusedCrossDomainTrainer,
     dad_trainer,
+    fused_trainer,
 )
 
 PORT_PKG = attention.__name__.split(".")[0]
@@ -219,6 +258,22 @@ DACP_TOL = 0.01
 # DACP opened: the threshold is each class's low quantile of its scores, so
 # rows pass the mask and the consistency and ECDA terms carry weight
 DACP_OPEN = dict(quantile_start=0.0, quantile_end=0.2, threshold_smoothing_alpha=0.0)
+# phase 9, kernel vs plain attention path, each extracting its own stores:
+# a clip's bf16 features by the norm of their difference over the plain
+# ones' norm. The plain path rounds the scores to bf16 before the softmax
+# (a score near 10 moves by up to half its ulp, 0.031, so its probability
+# by up to 3 %), the kernel keeps them f32; 12 blocks compound it, to a median of
+# 8.5e-3 and a maximum of 1.02e-2 over the 5531 clean clips on an H100
+# (this phase). In f32, where neither rounds, the two paths agree to 6e-6
+# (phase 4), and a wrong tile or mask moves a clip by O(1): 2e-2 holds
+# the spread with room and catches those. The trainers' epoch metrics
+# relative to their size (the consistency loss is ~0.01); the student's
+# 3-step update by the norm of its difference over the plain update's
+# norm (Adam's update is about lr * sign(g), so it parts only where a
+# gradient is near 0)
+FEAT_REL_TOL_BF16 = 2e-2
+TRAINER_REL_TOL = dict(atol=1e-4, rtol=0.02)
+UPDATE_REL_TOL = 0.25
 
 
 def nvidia_smi_line() -> str:
@@ -378,13 +433,16 @@ def check_attention_kernel(N: int, dtype: torch.dtype, clocks: timing.ClockSampl
 
 
 def run_attention_phase() -> dict:
-    """Phase 3: the serving shapes (B = 16, N 49, 399, 1499) in bf16 and
-    f32, and the fused step's shape (B = 64 clips of 4 s, N = 199)."""
+    """Phase 3: B = 16 at every frame count of the 1-30 s wav buckets (N 49,
+    99, 199, 399, 799, 1499: the serving batches and the fused trainer's
+    extraction passes) in bf16, the serving shapes (N 49, 399, 1499) in
+    f32, and B = 64 at the fused steps' frame counts (N 199: 4 s clips, as
+    bench.py's; 799 and 1499: the 16 s and 30 s buckets of phase 9)."""
     results = {}
     with timing.ClockSampler(gpu=torch.cuda.current_device()) as clocks:
-        cases = [(torch.bfloat16, N, 16) for N in (49, 399, 1499)]
+        cases = [(torch.bfloat16, N, 16) for N in (49, 99, 199, 399, 799, 1499)]
         cases += [(torch.float32, N, 16) for N in (49, 399, 1499)]
-        cases += [(torch.bfloat16, 199, TRAIN_B)]
+        cases += [(torch.bfloat16, N, TRAIN_B) for N in (199, 799, 1499)]
         for dtype, N, B in cases:
             r = check_attention_kernel(N, dtype, clocks, B=B)
             results[(dtype, N, B)] = r
@@ -1171,66 +1229,92 @@ def write_feature_corpus(root: str, seed: int) -> tuple:
                       max_frames=int(lengths.max()), store_gb=clean.nbytes / 1e9)
 
 
-class TrainerProbe:
-    """Measures the trainer from outside while ``cli.main`` drives it: a
-    CUDA event recorded before every training step (on the stream, so the
-    spacing of two is the device's time per step, idle gaps included), the
-    bytes of the step's two batches (f32 leaves and the rest), and host
-    clocks around ``train_epoch`` and ``validate``, each of which ends in a
-    host read of device values. Keeps the trainers it saw. The patches are
-    undone on exit."""
+def batch_bytes(args) -> tuple:
+    """(f32 bytes, other bytes) of a streamed step's two batches."""
+    leaves = [x for b in args[1:3] for x in b if isinstance(x, torch.Tensor)]
+    f32 = sum(x.nbytes for x in leaves if x.dtype == torch.float32)
+    return f32, sum(x.nbytes for x in leaves) - f32
 
-    def __init__(self):
+
+def index_bytes(args) -> tuple:
+    """(0, bytes) of a resident step's two index vectors, its only upload."""
+    return 0, args[3].nbytes + args[4].nbytes
+
+
+class TrainerProbe:
+    """Measures a trainer from outside while ``cli.main`` drives it: a CUDA
+    event recorded before every training step (on the stream, so the
+    spacing of two is the device's time per step, idle gaps included), the
+    bytes the step was shipped (the streamed step's batches, f32 leaves and
+    the rest; the resident step's index vectors), and host clocks around
+    ``train_epoch`` and ``validate``, each of which ends in a host read of
+    device values. ``makers`` names the step factories of ``module`` to
+    wrap, each with the function that counts its step's bytes. Keeps the
+    trainers it saw. The patches are undone on exit."""
+
+    def __init__(self, module=dad_trainer, cls=None, makers=None):
+        self.module = module
+        self.cls = cls or dad_trainer.CrossDomainTrainer
+        self.makers = makers or {"make_dad_train_step": batch_bytes,
+                                 "make_resident_dad_step": index_bytes}
         self.events, self.epochs, self.validations, self.trainers = [], [], [], []
         self.step_bytes = []
 
-    def __enter__(self) -> "TrainerProbe":
-        cls = dad_trainer.CrossDomainTrainer
-        self._saved = dict(make=dad_trainer.make_dad_train_step, init=cls.__init__,
-                           train_epoch=cls.train_epoch, validate=cls.validate)
-        saved, probe = self._saved, self
+    def _wrap_maker(self, make, count):
+        probe = self
 
-        def make(*args, **kwargs):
-            step = saved["make"](*args, **kwargs)
+        def wrapped(*args, **kwargs):
+            step = make(*args, **kwargs)
 
-            def timed(state, clean, noisy, *a, **kw):
+            def timed(*a, **kw):
                 event = torch.cuda.Event(enable_timing=True)
                 event.record()
                 probe.events.append(event)
-                leaves = [x for b in (clean, noisy) for x in b if x is not None]
-                f32 = sum(x.nbytes for x in leaves if x.dtype == torch.float32)
-                probe.step_bytes.append((f32, sum(x.nbytes for x in leaves) - f32))
-                return step(state, clean, noisy, *a, **kw)
+                probe.step_bytes.append(count(a))
+                return step(*a, **kw)
 
             return timed
 
-        def init(obj, *args, **kwargs):
-            saved["init"](obj, *args, **kwargs)
+        return wrapped
+
+    def __enter__(self) -> "TrainerProbe":
+        cls, probe = self.cls, self
+        self._saved_makers = {n: getattr(self.module, n) for n in self.makers}
+        self._saved_cls = {n: cls.__dict__.get(n) for n in ("__init__", "train_epoch", "validate")}
+        init, train_epoch, validate = cls.__init__, cls.train_epoch, cls.validate
+
+        def probed_init(obj, *args, **kwargs):
+            init(obj, *args, **kwargs)
             probe.trainers.append(obj)
 
-        def train_epoch(obj, epoch):
+        def probed_train_epoch(obj, epoch):
             first, t0 = len(probe.events), time.perf_counter()
-            out = saved["train_epoch"](obj, epoch)
+            out = train_epoch(obj, epoch)
             probe.epochs.append(dict(epoch=epoch, seconds=time.perf_counter() - t0,
                                      first=first, last=len(probe.events)))
             return out
 
-        def validate(obj, it, domain, epoch=0):
+        def probed_validate(obj, it, domain, epoch=0):
             t0 = time.perf_counter()
-            out = saved["validate"](obj, it, domain, epoch)
+            out = validate(obj, it, domain, epoch)
             probe.validations.append(dict(epoch=epoch, domain=domain,
                                           seconds=time.perf_counter() - t0))
             return out
 
-        dad_trainer.make_dad_train_step = make
-        cls.__init__, cls.train_epoch, cls.validate = init, train_epoch, validate
+        for n, count in self.makers.items():
+            setattr(self.module, n, self._wrap_maker(self._saved_makers[n], count))
+        cls.__init__, cls.train_epoch, cls.validate = (probed_init, probed_train_epoch,
+                                                       probed_validate)
         return self
 
     def __exit__(self, *exc) -> None:
-        cls = dad_trainer.CrossDomainTrainer
-        dad_trainer.make_dad_train_step = self._saved["make"]
-        cls.__init__, cls.train_epoch = self._saved["init"], self._saved["train_epoch"]
-        cls.validate = self._saved["validate"]
+        for n, f in self._saved_makers.items():
+            setattr(self.module, n, f)
+        for n, f in self._saved_cls.items():
+            if f is None:
+                delattr(self.cls, n)
+            else:
+                setattr(self.cls, n, f)
 
     def step_ms(self, epoch: int) -> list:
         rec = next(e for e in self.epochs if e["epoch"] == epoch)
@@ -1268,10 +1352,11 @@ def close(a, b, tol: dict) -> bool:
     return a.shape == b.shape and bool(np.all(np.abs(a - b) <= tol["atol"] + tol["rtol"] * np.abs(b)))
 
 
-def check_trainer_run(trainer, epochs: int) -> dict:
+def check_trainer_run(trainer, epochs: int, min_test_wa=25.0) -> dict:
     """The checks of one ``cli dad`` run: finite history of the right
     lengths, the best .pth reloads and re-validates to the logged best noisy
-    WA, and the final test report beats chance."""
+    WA, and the final test report exists and (with ``min_test_wa``) beats
+    chance."""
     history = read_history(trainer)
     post = epochs - trainer.cfg.warmup_epochs
     for k in ("total_loss", "supervised_ce_loss", "consistency_loss", "ecda_loss"):
@@ -1290,7 +1375,7 @@ def check_trainer_run(trainer, epochs: int) -> dict:
     with open(f"{trainer.results_dir}/reports/FINAL_test_set_results.json") as f:
         final = json.load(f)
     test_wa = float(final["final_test_results"]["noisy_domain"]["weighted_accuracy"][:-1])
-    if not test_wa > 25.0:
+    if min_test_wa is not None and not test_wa > min_test_wa:
         raise AssertionError(f"noisy test WA {test_wa} % is not above chance")
     return dict(best_noisy_wa=trainer.best_noisy_weighted_acc, best_epoch=trainer.best_results["epoch"],
                 noisy_test_wa=test_wa, losses=history["total_loss"],
@@ -1405,9 +1490,76 @@ def check_prefetch_on_card(trainer, transfer_dtype, n_items: int = 6) -> float:
     return time.perf_counter() - t0
 
 
+@contextlib.contextmanager
+def cut_epochs(steps: int):
+    """Both trainers' epochs cut to their first ``steps`` steps: the
+    streamed and the index pairings of each trainer module, sliced."""
+    saved = [(m, n, getattr(m, n)) for m in (dad_trainer, fused_trainer)
+             for n in ("paired_epoch", "paired_index_epoch")]
+    for m, n, f in saved:
+        setattr(m, n, lambda *a, f=f: itertools.islice(f(*a), steps))
+    try:
+        yield
+    finally:
+        for m, n, f in saved:
+            setattr(m, n, f)
+
+
+def first_steps(trainer, epoch: int, steps: int) -> tuple:
+    """Runs ``steps`` steps of ``trainer.train_epoch(epoch)`` through the
+    trainer's own path (streamed or resident); returns (the epoch's metric
+    averages, wall ms per step)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with cut_epochs(steps):
+        avg = trainer.train_epoch(epoch)
+    torch.cuda.synchronize()
+    return avg, (time.perf_counter() - t0) * 1e3 / steps
+
+
+def state_max_diffs(a, b) -> dict:
+    """Max |a - b| of two DAD train states, by part."""
+    out = {}
+    for name, x, y in (("student", a.ssrl.student, b.ssrl.student),
+                       ("teacher", a.ssrl.teacher, b.ssrl.teacher),
+                       ("adam mu", a.opt_state.mu, b.opt_state.mu),
+                       ("adam nu", a.opt_state.nu, b.opt_state.nu),
+                       ("dacp", a.dacp._asdict(), b.dacp._asdict())):
+        out[name] = max(float((x[k].float() - y[k].float()).abs().max()) for k in y)
+    return out
+
+
+def resident_against_streamed(make, epoch: int) -> dict:
+    """``make(resident)`` builds a trainer; a resident and a streamed one
+    take the same first steps of ``epoch`` (one seed, so the same draws):
+    metrics within TRAINER_METRIC_TOL and the state within
+    TRAINER_STATE_TOL (0 expected: the batches are bit-equal). Returns the
+    max differences, each path's ms/step and the resident trainer."""
+    out, runs = {}, {}
+    for resident in (True, False):
+        t = make(resident)
+        if (t._resident is not None) != resident:
+            raise AssertionError(f"resident={resident} trainer has _resident {t._resident}")
+        avg, ms = first_steps(t, epoch, COMPARE_STEPS)
+        runs[resident] = (t, avg)
+        out["resident_ms_per_step" if resident else "streamed_ms_per_step"] = ms
+    (res, a), (stream, b) = runs[True], runs[False]
+    out["metrics_max_diff"] = max(abs(a[k] - b[k]) for k in b)
+    bad = [k for k in b if not close(a[k], b[k], TRAINER_METRIC_TOL)]
+    out["state_max_diff"] = state_max_diffs(res.state, stream.state)
+    for name, (x, y) in (("student", (res.state.ssrl.student, stream.state.ssrl.student)),
+                         ("teacher", (res.state.ssrl.teacher, stream.state.ssrl.teacher))):
+        bad += [f"{name} {k}" for k in y if not close(x[k].cpu(), y[k].cpu(), TRAINER_STATE_TOL)]
+    if bad:
+        raise AssertionError(f"resident vs streamed: {bad}: {out}")
+    out["metrics"] = a
+    del stream
+    return out, res
+
+
 def run_feature_trainer() -> dict:
     """Phase 8: ``cli dad --clean --noisy`` on the card at the iemocap
-    preset's full width."""
+    preset's full width; the fold's stores resident on the card."""
     with tempfile.TemporaryDirectory(prefix="dad_feature_trainer_") as root, \
             contextlib.chdir(root):  # the results directories are relative, as the reference's
         t0 = time.perf_counter()
@@ -1427,6 +1579,9 @@ def run_feature_trainer() -> dict:
         if rc != 0:
             raise AssertionError(f"cli dad returned {rc}")
         trainer = probe.trainers[-1]
+        if trainer._resident is None:
+            raise AssertionError("--resident auto did not engage the resident feature corpus")
+        resident_mb = sum(c.flat.nbytes for c in trainer._resident) / 1e6
         checks = check_trainer_run(trainer, FEATURE_EPOCHS)
         last = FEATURE_EPOCHS - 1
         rec = next(e for e in probe.epochs if e["epoch"] == last)
@@ -1443,9 +1598,12 @@ def run_feature_trainer() -> dict:
         print("train_features: per-step run " + json.dumps(checks), flush=True)
         print("train_features: times " + json.dumps(timing_info), flush=True)
         h2d = probe.h2d_mb_per_step(last)
-        print(f"train_features: H2D per step (epoch {last}, {steps} steps): "
-              f"{h2d['float32']:.1f} MB as float32, {h2d['bfloat16']:.1f} MB with "
-              f"--transfer-dtype bfloat16", flush=True)
+        streamed = streamed_mb_per_step(trainer.clean_train, trainer.noisy_train, last,
+                                        FEATURE_DIM)
+        print(f"train_features: resident corpus {resident_mb:.1f} MB on the card; H2D per "
+              f"step (epoch {last}, {steps} steps): resident {h2d['float32'] * 1e6:.0f} bytes "
+              f"of indices; streamed {streamed['float32']:.1f} MB as float32, "
+              f"{streamed['bfloat16']:.1f} MB with --transfer-dtype bfloat16", flush=True)
         pf = [check_prefetch_on_card(trainer, d) for d in (None, "bfloat16")]
         print(f"train_features: prefetch pinned path, batches equal to the host's under a slow "
               f"consumer (float32 {pf[0]:.1f} s, bfloat16 {pf[1]:.1f} s)", flush=True)
@@ -1465,17 +1623,39 @@ def run_feature_trainer() -> dict:
         cfg, stores = trainer.cfg, (trainer.clean_store, trainer.noisy_store)
         del trainer, probe, c, n
 
-        with TrainerProbe() as probe_chunk:
-            rc = cli.main(argv + ["--name", "chunk", "--scan-chunk", str(FEATURE_CHUNK)])
-        if rc != 0:
-            raise AssertionError(f"cli dad --scan-chunk returned {rc}")
-        chunked = probe_chunk.trainers[-1]
-        diffs = compare_histories(read_history(chunked), history)
-        chunk_s = [e["seconds"] for e in probe_chunk.epochs]
-        print(f"train_features: --scan-chunk {FEATURE_CHUNK} history equals per-step within "
-              f"METRIC_TOL, max |diff| by series {json.dumps(diffs)}; epoch s {chunk_s}",
-              flush=True)
-        del chunked, probe_chunk
+        # resident against --resident off: the same first steps of epoch 2,
+        # DACP opened so that the noisy stream reaches the loss
+        open_cfg = dataclasses.replace(cfg, results_base_dir="resident_vs_streamed",
+                                       dacp=dataclasses.replace(cfg.dacp, **DACP_OPEN))
+        report, res = resident_against_streamed(
+            lambda r: CrossDomainTrainer(open_cfg, experiment_name=f"resident_{r}",
+                                         clean_store=stores[0], noisy_store=stores[1],
+                                         resident=r), epoch=2)
+        del res
+        print(f"train_features: resident vs --resident off, {COMPARE_STEPS} steps of epoch 2 "
+              f"from one seed: " + json.dumps(report), flush=True)
+
+        # --scan-chunk on both paths: the resident chunk runner, and the
+        # streamed chunks (stacked on the host by the prefetch worker)
+        for resident in ("auto", "off"):
+            with TrainerProbe() as probe_chunk:
+                rc = cli.main(argv + ["--name", f"chunk_{resident}", "--resident", resident,
+                                      "--scan-chunk", str(FEATURE_CHUNK)])
+            if rc != 0:
+                raise AssertionError(f"cli dad --scan-chunk --resident {resident} returned {rc}")
+            chunked = probe_chunk.trainers[-1]
+            if (chunked._resident is None) != (resident == "off"):
+                raise AssertionError(f"--scan-chunk --resident {resident}: _resident is "
+                                     f"{chunked._resident}")
+            if resident == "off" and chunked._epoch_runner is None:
+                raise AssertionError("--scan-chunk --resident off: the streamed chunk runner "
+                                     "is not engaged")
+            diffs = compare_histories(read_history(chunked), history)
+            chunk_s = [e["seconds"] for e in probe_chunk.epochs]
+            print(f"train_features: --scan-chunk {FEATURE_CHUNK} --resident {resident} history "
+                  f"equals per-step within METRIC_TOL, max |diff| by series "
+                  f"{json.dumps(diffs)}; epoch s {chunk_s}", flush=True)
+            del chunked, probe_chunk
 
         # DACP opened, so that the consistency and ECDA terms carry weight
         cpu_cfg = dataclasses.replace(cfg, dropout_rate=0.0, results_base_dir="card_cpu",
@@ -1488,15 +1668,331 @@ def run_feature_trainer() -> dict:
     return dict(timing=timing_info, checks=checks)
 
 
+def streamed_mb_per_step(clean_it, noisy_it, epoch: int, dim: int) -> dict:
+    """The MB a streamed step of ``epoch`` would ship, from the shapes of
+    its two batches: a feature batch's (B, T, dim) f32 features and (B, T)
+    mask, or a wav batch's (B, T) f32 samples and mask, plus (B,) labels,
+    ids and row flags; as float32 and with f32 leaves shipped as bf16."""
+    f32 = other = 0
+    pairs = list(resident_mod.paired_index_epoch(clean_it, noisy_it, epoch))
+    for (cidx, tc), (nidx, tn) in pairs:
+        for idx, t, width in ((cidx, tc, dim), (nidx, tn, dim if hasattr(noisy_it, "max_frames")
+                                                      else 1)):
+            B = len(idx)
+            f32 += B * t * width * 4
+            other += B * t + B * (4 + 4 + 1)
+    n = len(pairs)
+    return dict(float32=(f32 + other) / n / 1e6, bfloat16=(f32 / 2 + other) / n / 1e6)
+
+
+# the fused trainer (phase 9): wavs of the same 4-class IEMOCAP clip count
+# over Ses01-Ses05, lognormal lengths of mean ~4.5 s clipped to 0.6-30 s,
+# 16 kHz int16; a tone per class (frequency and amplitude) plus low noise
+WAV_SECONDS, WAV_MEAN_SECONDS, WAV_SIGMA = (0.6, 30.0), 4.5, 0.6
+FUSED_EPOCHS, EXTRACT_BATCH = 3, 16
+
+
+def write_wav_corpus(root: str, seed: int) -> tuple:
+    """An IEMOCAP-layout wav corpus with its manifest and ``.emo`` sidecar,
+    written with the port's ``write_wav`` and ``write_manifest``; returns the
+    manifest directory and the corpus's sizes."""
+    rng = np.random.default_rng(seed)
+    labels = np.repeat(list(FEATURE_CLASSES), list(FEATURE_CLASSES.values()))
+    rng.shuffle(labels)
+    n = len(labels)
+    mu = np.log(WAV_MEAN_SECONDS) - WAV_SIGMA**2 / 2
+    lengths = (np.clip(rng.lognormal(mu, WAV_SIGMA, n), *WAV_SECONDS) * SAMPLE_RATE).astype(
+        np.int64)
+    class_ids = np.searchsorted(list(FEATURE_CLASSES), labels)
+    os.makedirs(f"{root}/wav")
+    entries = []
+    for i, (t, c, label) in enumerate(zip(lengths, class_ids, labels)):
+        name = f"Ses0{i % 5 + 1}{'FM'[i // 5 % 2]}_impro0{i % 7}_{'FM'[i // 5 % 2]}{i:04d}"
+        f = 150.0 * (c + 1) * (1 + 0.02 * rng.standard_normal())
+        x = (0.05 + 0.1 * c) * np.sin(2 * np.pi * f / SAMPLE_RATE * np.arange(t, dtype=np.float32))
+        x += 0.005 * rng.standard_normal(t, dtype=np.float32)
+        write_wav(f"{root}/wav/{name}.wav", x, SAMPLE_RATE)
+        entries.append(ManifestEntry(f"{name}.wav", int(t), str(label), name[:5], name))
+    write_manifest(f"{root}/manifests", f"{root}/wav", entries, "emo")
+    return f"{root}/manifests", dict(clips=n, hours=float(lengths.sum() / SAMPLE_RATE / 3600),
+                                     mean_s=float(lengths.mean() / SAMPLE_RATE),
+                                     max_s=float(lengths.max() / SAMPLE_RATE))
+
+
+class StartupProbe:
+    """Host seconds of the fused trainer's startup stages: the wav decode,
+    each extraction pass and the fixed injection (each ends in host data)."""
+
+    def __init__(self):
+        self.stages = []
+
+    def _timed(self, name, fn):
+        def timed(*a, **kw):
+            t0 = time.perf_counter()
+            out = fn(*a, **kw)
+            self.stages.append((name, time.perf_counter() - t0))
+            return out
+
+        return timed
+
+    def __enter__(self) -> "StartupProbe":
+        self._saved = (fused_trainer.load_wav_store, fused_trainer.inject_fixed,
+                       FeatureExtractor.extract_clips)
+        fused_trainer.load_wav_store = self._timed("wav decode", self._saved[0])
+        fused_trainer.inject_fixed = self._timed("fixed injection", self._saved[1])
+        FeatureExtractor.extract_clips = self._timed("extraction", self._saved[2])
+        return self
+
+    def __exit__(self, *exc) -> None:
+        (fused_trainer.load_wav_store, fused_trainer.inject_fixed,
+         FeatureExtractor.extract_clips) = self._saved
+
+    def summary(self) -> dict:
+        out, n = {}, 0
+        for name, sec in self.stages:
+            if name == "extraction":
+                name = ("clean", "noisy")[n] + " extraction"
+                n += 1
+            out[name] = sec
+        return out
+
+
+def record_tracking(trainer):
+    """Keeps each training step's tracking outputs (every row's id and
+    certainty score, on the device) in ``trainer.step_tracking``."""
+    name = "_resident_step" if trainer._resident is not None else "_fused_step"
+    step, trainer.step_tracking = getattr(trainer, name), []
+
+    def recorded(*a, **kw):
+        state, metrics = step(*a, **kw)
+        trainer.step_tracking.append(metrics["tracking"])
+        return state, metrics
+
+    setattr(trainer, name, recorded)
+    return trainer
+
+
+def store_against_plain(kernel_store, plain_store, what: str, errors: list) -> dict:
+    """A startup store extracted through the attention kernel against the
+    same clips extracted through the plain attention path: per clip, the
+    norm of the difference over the norm of the plain features, within
+    FEAT_REL_TOL_BF16 (else an entry in ``errors``)."""
+    sizes = kernel_store.sizes
+    offsets = np.concatenate([[0], np.cumsum(sizes)[:-1]])
+    for st in (kernel_store, plain_store):
+        if not (np.array_equal(st.sizes, sizes) and np.array_equal(st.offsets, offsets)):
+            raise AssertionError(f"{what} stores differ in layout")
+    k, p = kernel_store.feats, plain_store.feats
+    if not np.isfinite(k).all():
+        raise AssertionError(f"{what} store: non-finite features through the kernel")
+    d = k - p
+    rel = np.sqrt(np.add.reduceat(np.einsum("fd,fd->f", d, d), offsets)
+                  / np.add.reduceat(np.einsum("fd,fd->f", p, p), offsets))
+    out = dict(clips=int(len(sizes)), clip_rel_err_max=float(rel.max()),
+               clip_rel_err_median=float(np.median(rel)), max_abs_diff=float(np.abs(d).max()),
+               plain_max_abs=float(np.abs(p).max()))
+    if not rel.max() <= FEAT_REL_TOL_BF16:
+        errors.append(f"{what} store: clip {int(rel.argmax())} relative error {rel.max():.3e} "
+                      f"> {FEAT_REL_TOL_BF16}")
+    return out
+
+
+def kernel_against_plain(res_trainer, res_avg: dict, make_plain, epoch: int,
+                         errors: list) -> dict:
+    """A resident trainer's metrics, certainty scores and student update
+    after ``first_steps`` (attention through the kernel, its stores
+    extracted through the kernel) against a trainer whose encoder takes the
+    plain attention path and whose stores the plain path extracted, the
+    same steps from one seed: metrics within TRAINER_REL_TOL, every valid
+    row's certainty score and the DACP state within DACP_TOL, the student's
+    update within UPDATE_REL_TOL of the plain one's; each miss an entry in
+    ``errors``."""
+    plain = make_plain()
+    before = {k: v.clone() for k, v in plain.state.ssrl.student.items()}
+    avg, _ms = first_steps(plain, epoch, COMPARE_STEPS)
+    out = dict(metrics={k: [res_avg[k], avg[k]] for k in avg})
+    for k, (a, b) in out["metrics"].items():
+        if not close(a, b, TRAINER_REL_TOL):
+            errors.append(f"{k}: {a} vs {b}")
+    ids, scores = ([torch.cat([tr[key] for tr in t.step_tracking]) for t in (res_trainer, plain)]
+                   for key in ("ids", "certainty_score"))
+    if not torch.equal(*ids):
+        errors.append("the steps saw different rows")
+    valid = ids[0] >= 0
+    out["score_max_diff"] = float((scores[0].float() - scores[1].float()).abs()[valid].max())
+    if out["score_max_diff"] > DACP_TOL:
+        errors.append(f"certainty scores max |diff| {out['score_max_diff']:.3e} > {DACP_TOL}")
+    diffs = state_max_diffs(res_trainer.state, plain.state)
+    if diffs["dacp"] > DACP_TOL:
+        errors.append(f"DACP state max |diff| {diffs['dacp']:.3e} > {DACP_TOL}")
+    sq = dict(diff=0.0, plain=0.0)
+    for k, s0 in before.items():
+        dk, dp = res_trainer.state.ssrl.student[k] - s0, plain.state.ssrl.student[k] - s0
+        sq["diff"] += float(((dk - dp) ** 2).sum())
+        sq["plain"] += float((dp**2).sum())
+    out["student_update_rel_diff"] = math.sqrt(sq["diff"] / sq["plain"])
+    if not out["student_update_rel_diff"] <= UPDATE_REL_TOL:
+        errors.append(f"student update relative |diff| {out['student_update_rel_diff']:.3e} > "
+                      f"{UPDATE_REL_TOL}")
+    out.update(rows=int(valid.sum()), state_max_diff=diffs)
+    del plain
+    return out
+
+
+def run_fused_trainer() -> dict:
+    """Phase 9: ``cli dad --from-wav`` on the card at the iemocap preset's
+    full width, attention through the kernel, the corpus resident."""
+    with tempfile.TemporaryDirectory(prefix="dad_fused_trainer_") as root, \
+            contextlib.chdir(root):
+        t0 = time.perf_counter()
+        manifests, corpus = write_wav_corpus(root, seed=0)
+        enc_cfg = EncoderConfig(dtype="bfloat16", use_flash_attention=True)
+        ckpt = f"{root}/emotion2vec_base.pt"
+        torch.save({"model": random_fairseq_state_dict(enc_cfg, seed=0)}, ckpt)
+        print(f"train_fused: corpus {json.dumps(corpus)}, written in "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+        argv = ["dad", "--corpus", "iemocap", "--from-wav", manifests, "--checkpoint", ckpt,
+                "--fold", "0", "--epochs", str(FUSED_EPOCHS), "--warmup-epochs", "1",
+                "--snr", "10", "--name", "fused"]
+
+        zero_kernel_launches()
+        torch.cuda.reset_peak_memory_stats()
+        held_gb = torch.cuda.memory_allocated() / 1e9  # earlier phases' tensors, in the peak
+        probe = TrainerProbe(fused_trainer, FusedCrossDomainTrainer,
+                             {"make_fused_extract_train_step": batch_bytes,
+                              "make_resident_fused_step": index_bytes})
+        with probe, StartupProbe() as startup:
+            t0 = time.perf_counter()
+            rc = cli.main(argv)
+            run_s = time.perf_counter() - t0
+        launches = kernel_launches()
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        if rc != 0:
+            raise AssertionError(f"cli dad --from-wav returned {rc}")
+        trainer = probe.trainers[-1]
+        if trainer._resident is None:
+            raise AssertionError("--resident auto did not engage the resident corpus")
+        resident_mb = sum(c.flat.nbytes for c in trainer._resident) / 1e6
+        blocks = trainer.fused_cfg.encoder.prenet_depth + trainer.fused_cfg.encoder.depth
+        n = trainer.wav_store.num
+        extract_batches = -(-n // EXTRACT_BATCH)
+        steps = len(probe.events)
+        per_epoch = min(len(trainer.clean_train), len(trainer.noisy_wav_train))
+        if steps != FUSED_EPOCHS * per_epoch:
+            raise AssertionError(f"{steps} training steps, expected {FUSED_EPOCHS} x {per_epoch}")
+        want = dict(flash_attention=blocks * (2 * extract_batches + steps), fused_layernorm=0,
+                    fused_conv_ln_gelu=0, copy_rows=0)
+        if launches != want:
+            raise AssertionError(f"kernel launches {launches}, expected {want} ({blocks} x (2 x "
+                                 f"{extract_batches} extraction batches + {steps} steps))")
+        checks = check_trainer_run(trainer, FUSED_EPOCHS)
+        history = read_history(trainer)
+        if not history["supervised_ce_loss"][2] < history["supervised_ce_loss"][0]:
+            raise AssertionError(f"clean CE did not fall: {history['supervised_ce_loss']}")
+        last = FUSED_EPOCHS - 1
+        rec = next(e for e in probe.epochs if e["epoch"] == last)
+        ms = probe.step_ms(last)
+        clips = 2 * min(per_epoch * trainer.cfg.batch_size, trainer.clean_train.store.num)
+        buckets = collections.Counter(
+            t for e in range(FUSED_EPOCHS)
+            for _c, (_i, t) in resident_mod.paired_index_epoch(trainer.clean_train,
+                                                               trainer.noisy_wav_train, e))
+        streamed = streamed_mb_per_step(trainer.clean_train, trainer.noisy_wav_train, last,
+                                        trainer.cfg.input_dim)
+        info = dict(
+            startup_s=startup.summary(), run_s=run_s, resident_mb=resident_mb,
+            peak_device_gb=peak_gb, held_before_gb=held_gb, steps_per_epoch=per_epoch,
+            ms_per_step_median=float(np.median(ms)), ms_per_step_range=[min(ms), max(ms)],
+            epoch_s=[e["seconds"] for e in probe.epochs], clips_per_s=clips / rec["seconds"],
+            h2d_bytes_per_step_resident=probe.h2d_mb_per_step(last)["float32"] * 1e6,
+            h2d_mb_per_step_streamed=streamed,
+            wav_buckets_of_steps={str(k): v for k, v in sorted(buckets.items())},
+            kernel_launches=launches)
+        print("train_fused: run " + json.dumps(checks), flush=True)
+        print("train_fused: times " + json.dumps(info), flush=True)
+        del probe
+
+        # one resident step at the most common wav bucket, profiled
+        t_wav = buckets.most_common(1)[0][0]
+        (cidx, t_c), (widx, _t) = next(
+            p for p in resident_mod.paired_index_epoch(trainer.clean_train,
+                                                       trainer.noisy_wav_train, last)
+            if p[1][1] == t_wav)
+        step = fused_trainer.make_resident_fused_step(trainer.encoder, trainer.head, trainer.tx,
+                                                      trainer.fused_cfg)
+        scalars = StepScalars.for_epoch(trainer.cfg, last)
+        clean_c, wav_c = trainer._resident
+        args = (trainer.state, clean_c, wav_c, torch.from_numpy(cidx).cuda(),
+                torch.from_numpy(widx).cuda(), scalars, trainer.anchors, trainer.generator)
+        step(*args, t_clean=t_c, t_wav=t_wav, frame_cap=trainer.clean_train.max_frames)
+        profile = profile_step(lambda: step(*args, t_clean=t_c, t_wav=t_wav,
+                                            frame_cap=trainer.clean_train.max_frames))
+        attn = profile["by_group_ms"].get("attention kernel", 0.0)
+        profile.update(wav_bucket=t_wav, clean_frames=t_c,
+                       attention_share=attn / profile["device_ms"])
+        print("profile: fused train step " + json.dumps(profile), flush=True)
+
+        # resident against streamed, then kernel against plain attention:
+        # fresh trainers, DACP opened; the kernel's from this run's startup
+        shared = dict(wav_store=trainer.wav_store, extractor=trainer.extractor,
+                      clean_store=trainer.clean_store, noisy_store=trainer.noisy_store,
+                      noise_clips=None)
+        cfg = dataclasses.replace(trainer.cfg, results_base_dir="compare",
+                                  dacp=dataclasses.replace(trainer.cfg.dacp, **DACP_OPEN))
+        fused_cfg = trainer.fused_cfg
+        del trainer, step, args, clean_c, wav_c
+        torch.cuda.empty_cache()
+
+        def make(resident, startup=shared, name="kernel"):
+            enc = startup["extractor"].cfg
+            return record_tracking(FusedCrossDomainTrainer(
+                cfg, manifests, enc, None, fused_cfg=dataclasses.replace(fused_cfg, encoder=enc),
+                experiment_name=f"{name}_{resident}", shared=startup, resident=resident))
+
+        report, res = resident_against_streamed(make, epoch=last)
+        print(f"train_fused: resident vs --resident off, {COMPARE_STEPS} steps of epoch {last} "
+              "from one seed: " + json.dumps(report), flush=True)
+
+        # the plain attention path's own startup: both extraction passes
+        # through it, so that the stores the kernel extracted are held
+        # against it too
+        plain_cfg = dataclasses.replace(enc_cfg, use_flash_attention=False)
+        zero_kernel_launches()
+        t0 = time.perf_counter()
+        plain_shared = fused_trainer.prepare_fused_shared(
+            cfg, manifests, plain_cfg, load_emotion2vec_checkpoint(ckpt, plain_cfg),
+            dataclasses.replace(fused_cfg, encoder=plain_cfg), None)
+        plain_s = time.perf_counter() - t0
+        if attention.flash_attention.launches:
+            raise AssertionError("the plain attention path launched the kernel")
+        errors = []
+        stores = {what: store_against_plain(shared[f"{what}_store"],
+                                            plain_shared[f"{what}_store"], what, errors)
+                  for what in ("clean", "noisy")}
+        print(f"train_fused: startup stores, kernel vs plain attention path (plain startup "
+              f"{plain_s:.1f} s): " + json.dumps(stores), flush=True)
+        kp = kernel_against_plain(res, report["metrics"],
+                                  lambda: make(True, plain_shared, "plain"), last, errors)
+        print(f"train_fused: kernel vs plain attention, each with its own stores, "
+              f"{COMPARE_STEPS} resident steps of epoch {last} from one seed: " + json.dumps(kp),
+              flush=True)
+        if errors:
+            raise AssertionError("fused trainer, kernel vs plain attention: " + "; ".join(errors))
+        del res, plain_shared, shared
+        torch.cuda.empty_cache()
+    return dict(launches=launches["flash_attention"], info=info)
+
+
 T_START = time.perf_counter()
 
 
 def parse_args(argv=None) -> argparse.Namespace:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    p.add_argument("--only", choices=("attention", "conv", "trainer"),
+    p.add_argument("--only", choices=("attention", "conv", "trainer", "fused"),
                    help="attention: build and run phases 1-3 only; conv: build conv.cu and "
                         "run phases 1, 2 and 6, then the conv grid comparison (to time two "
-                        "checkouts in one call); trainer: build nothing, run phase 8 only")
+                        "checkouts in one call); trainer: build nothing, run phase 8 only; "
+                        "fused: build attention.cu and run phases 1, 2 and 9")
     return p.parse_args(argv)
 
 
@@ -1512,7 +2008,8 @@ def main(argv=None) -> int:
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
 
-    sources = {None: SOURCES, "trainer": ()}.get(args.only, (args.only,))
+    sources = {None: SOURCES, "trainer": (), "fused": ("attention",)}.get(args.only,
+                                                                         (args.only,))
     t0 = time.perf_counter()
     if sources:
         with concurrent.futures.ThreadPoolExecutor(len(sources)) as pool:
@@ -1526,6 +2023,8 @@ def main(argv=None) -> int:
 
     if args.only == "trainer":
         run_feature_trainer()
+    elif args.only == "fused":
+        run_fused_trainer()
     elif args.only == "conv":
         # the serving slice's encoder weights and the training slice's noisy batch
         enc_cfg = EncoderConfig(dtype="bfloat16", use_flash_attention=True)
@@ -1551,6 +2050,7 @@ def main(argv=None) -> int:
     del clean, noisy
     torch.cuda.empty_cache()
     run_feature_trainer()
+    fused = run_fused_trainer()
 
     def entry(name, source, replaces, launches, r):
         return dict(name=name, route="cuda", source=f"{PORT_PKG}/csrc/{source}",
@@ -1568,7 +2068,7 @@ def main(argv=None) -> int:
     front["bound_by"] = "operations" if ops_bound > front["bound_ms"] / 2 else "bytes"
     kernels = [
         entry("flash_attention", "attention.cu", f"{JAX_PKG}/ops/attention.py:28",
-              slice_info["launches"] + train["launches"], step_attn),
+              slice_info["launches"] + train["launches"] + fused["launches"], step_attn),
         entry("fused_layernorm", "fused_norm.cu", f"{JAX_PKG}/ops/fused_norm.py:44",
               norm["launches"]["fused_layernorm"], norm["rows"][("ln_gelu", torch.bfloat16)]),
         entry("fused_conv_ln_gelu", "conv.cu", f"{JAX_PKG}/ops/conv.py:86",

@@ -4,8 +4,8 @@ A second package beside the JAX reference, module for module: each file
 here has its counterpart at the same relative path in the JAX package.
 It imports ``torch`` and ``numpy`` only. Entry points (``FeatureExtractor``,
 ``EmotionPredictor``, ``PredictionServer``, ``cli serve``) run on the GPU
-unless the caller passes ``device="cpu"``; so do ``CrossDomainTrainer``
-and ``cli dad``.
+unless the caller passes ``device="cpu"``; so do ``CrossDomainTrainer``,
+``FusedCrossDomainTrainer`` and ``cli dad``.
 
 Ported so far:
 - the wav -> emotion serving path (configs, encoder, head, extraction,
@@ -20,5 +20,12 @@ Ported so far:
 - the feature-level DAD trainer (``train/dad_trainer.py``, ``cli dad
   --clean --noisy``) and the host plumbing under it: feature stores, fold
   splits, bucketed batching, the prefetch pipeline, metrics, reports,
-  anchor calibration, the chunked epoch runner, checkpoints.
+  anchor calibration, the chunked epoch runner, checkpoints;
+- the fused wav->train trainer (``train/fused_trainer.py``, ``cli dad
+  --from-wav``), its attention through the kernel, and its wav plumbing:
+  wav I/O (``audio/wavio.py``), the numpy injectors and NOISEX loaders
+  (``audio/noise.py``), manifests, the wav store and its batches
+  (``data/manifests.py``, ``data/wavstore.py``);
+- the device-resident training corpus of both trainers
+  (``parallel/resident.py``; ``--resident auto``, the default).
 """

@@ -10,14 +10,21 @@ The batched variants work on (B, T) padded waveforms with a validity mask,
 so injection runs inside the fused extract+train step. Random draws come
 from an explicit ``torch.Generator`` on the tensors' device; each function
 also takes its draws ready-made (``noise``, ``types``, ``offsets``), which
-is how the tests feed both frameworks the same numbers. The file loaders
-(``load_noise_clips``, ``load_noise_bank``) come with the host plumbing.
+is how the tests feed both frameworks the same numbers.
+
+The numpy half (``add_white_noise_np``, ``tile_noise_np``,
+``add_real_noise_np``) is the reference injectors' own math; the fused
+trainer builds its fixed noisy validation and test domain with it. The file
+loaders (``load_noise_clips``, ``load_noise_bank``) read the NOISEX-92
+clips in bank order.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Union
+import os
+from typing import List, Optional, Sequence, Union
 
+import numpy as np
 import torch
 
 NOISE_TYPES = ("babble", "f16", "factory", "hfchannel", "volvo")
@@ -141,3 +148,63 @@ def batch_mix_noise_bank(
     target = _masked_power(wavs, valid_f) / _snr_factor(snr_db, wavs)
     scale = _noise_scale(target, _masked_power(noise, valid_f))
     return _peak_normalize(wavs + noise * scale[:, None])
+
+
+# ---------------------------------------------------------------------------
+# numpy reference paths (the fixed noisy domain; ground truth for the tests)
+# ---------------------------------------------------------------------------
+
+def add_white_noise_np(audio: np.ndarray, snr_db: float, rng: np.random.Generator) -> np.ndarray:
+    signal_power = np.mean(audio**2)
+    noise_power = signal_power / (10 ** (snr_db / 10))
+    noise = rng.normal(0.0, np.sqrt(noise_power), len(audio))
+    noisy = audio + noise
+    peak = np.max(np.abs(noisy))
+    if peak > 1.0:
+        noisy = noisy / peak
+    return noisy
+
+
+def tile_noise_np(noise: np.ndarray, target_length: int) -> np.ndarray:
+    if noise.ndim > 1:
+        noise = np.mean(noise, axis=1)
+    if len(noise) < target_length:
+        noise = np.tile(noise, int(np.ceil(target_length / len(noise))))
+    return noise[:target_length]
+
+
+def add_real_noise_np(audio: np.ndarray, noise: np.ndarray, snr_db: float) -> np.ndarray:
+    signal_power = np.mean(audio**2)
+    noise_power = np.mean(noise**2)
+    target = signal_power / (10 ** (snr_db / 10))
+    if noise_power > 0:
+        noise = noise * np.sqrt(target / noise_power)
+    noisy = audio + noise
+    peak = np.max(np.abs(noisy))
+    if peak > 1.0:
+        noisy = noisy / peak
+    return noisy
+
+
+def load_noise_clips(noise_root: str, files: Optional[Sequence[str]] = None) -> List[np.ndarray]:
+    """Raw NOISEX-92 clips in bank order (NOISE_FILE_MAPPING), mono-mixed:
+    the one loader behind the device bank and the fixed noisy domain."""
+    from .wavio import read_wav
+
+    clips = []
+    for fname in files or list(NOISE_FILE_MAPPING):
+        path = os.path.join(noise_root, fname)
+        if not os.path.exists(path):
+            raise FileNotFoundError(f"missing noise file: {path}")
+        c, _sr = read_wav(path)
+        if c.ndim == 2:
+            c = c.mean(axis=1)
+        clips.append(c.astype(np.float32))
+    return clips
+
+
+def load_noise_bank(noise_root: str, target_length: int,
+                    files: Optional[Sequence[str]] = None) -> np.ndarray:
+    """The NOISEX-92 files as a (5, target_length) array, short clips tiled."""
+    return np.stack([tile_noise_np(c, target_length)
+                     for c in load_noise_clips(noise_root, files)]).astype(np.float32)

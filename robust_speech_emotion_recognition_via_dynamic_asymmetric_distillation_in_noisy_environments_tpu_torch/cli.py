@@ -2,15 +2,21 @@
 
     python -m <pkg> serve --weights dad_best.pth [--checkpoint emotion2vec_base.pt]
     python -m <pkg> dad --corpus iemocap --clean FEATS --noisy root1-white-10db [--weights pm.ckpt]
+    python -m <pkg> dad --corpus iemocap --from-wav MANIFESTS --checkpoint emotion2vec_base.pt
 
 Ported so far, each with the JAX package's flags plus ``--device`` (default
 ``cuda``; ``cpu`` to run on the CPU):
 - ``serve``: its encoder runs attention through the hand-written CUDA
   kernel (``use_flash_attention=True``);
 - ``dad`` on feature stores (``--clean``/``--noisy``): the feature-level
-  DAD trainer. ``--from-wav`` (the fused trainer), ``--dp``/``--tp``
-  (multi-GPU) and ``--resident on`` exit with status 2, naming the
-  ROADMAP.md item that brings them.
+  DAD trainer;
+- ``dad --from-wav``: the fused wav->train trainer; its frozen encoder runs
+  attention through the kernel unless ``--encoder-json`` sets
+  ``use_flash_attention``.
+Both ``dad`` modes hold the fold's training corpus on the device when it
+fits (``--resident auto``, the default; ``on`` / ``off``). ``--fold all``
+logs a failed fold and goes on, then exits with status 1. ``--dp``/``--tp``
+(multi-GPU) exit with status 2, naming the ROADMAP.md item that brings them.
 The JAX package's other subcommands are recognised and exit with status 2,
 saying they are not ported yet.
 """
@@ -65,26 +71,24 @@ def _refuse(what: str) -> int:
     return 2
 
 
-def _cmd_dad(args):
-    from .configs import dad_preset
-    from .train import CrossDomainTrainer, run_cv
-    from .train.dad_trainer import MESH_NOT_PORTED, RESIDENT_NOT_PORTED
+def _load_encoder_json(arg: str) -> dict:
+    """--encoder-json takes an inline JSON object or a path to a JSON file;
+    conv_feature_layers lists become tuples, as the frozen config needs."""
+    import json
 
-    if args.from_wav:
-        return _refuse("--from-wav (the fused wav->train trainer) is not ported yet: "
-                       "ROADMAP.md §1 item 3")
-    if args.dp > 0 or args.tp > 1:
-        return _refuse(f"--dp/--tp: {MESH_NOT_PORTED}")
-    if args.resident == "on":
-        return _refuse(f"--resident on: {RESIDENT_NOT_PORTED}")
-    if not (args.clean and args.noisy):
-        raise ValueError("--clean and --noisy are required")
-    kw = dict(
-        clean_data_dir=args.clean,
-        noisy_data_dir=args.noisy,
-        pretrained_weight=args.weights or "",
-        epochs=args.epochs,
-    )
+    if arg.lstrip().startswith("{"):
+        kw = json.loads(arg)
+    else:
+        with open(arg, encoding="utf-8") as f:
+            kw = json.load(f)
+    if "conv_feature_layers" in kw:
+        kw["conv_feature_layers"] = tuple(tuple(x) for x in kw["conv_feature_layers"])
+    return kw
+
+
+def _sweep_cfg_kw(args) -> dict:
+    """The DAD-config overrides of both ``dad`` modes."""
+    kw = dict(pretrained_weight=args.weights or "", epochs=args.epochs)
     if args.warmup_epochs is not None:
         kw["warmup_epochs"] = args.warmup_epochs
         kw["ecda_start_epoch"] = args.warmup_epochs
@@ -92,36 +96,136 @@ def _cmd_dad(args):
         kw["batch_size"] = args.batch_size
     if args.bucket_batches:
         kw["bucket_batches"] = True
-    cfg = dad_preset(args.corpus, **kw)
-    resident = {"auto": "auto", "off": False}[args.resident]
+    return kw
+
+
+RESIDENT = {"auto": "auto", "on": True, "off": False}
+
+
+def _sweep_rc(summary: dict) -> int:
+    """A ``--fold all`` sweep logs a failed fold and goes on to the next;
+    its exit status is 1 when any fold failed."""
+    failed = [r["fold"] for r in summary["folds"] if "error" in r]
+    if not failed:
+        return 0
+    print(f"dad_torch: error: fold(s) {failed} of {len(summary['folds'])} failed",
+          file=sys.stderr)
+    return 1
+
+
+def _cmd_dad(args):
+    from .configs import dad_preset
+    from .train import CrossDomainTrainer, run_cv
+    from .train.dad_trainer import MESH_NOT_PORTED
+
+    if args.dp > 0 or args.tp > 1:
+        return _refuse(f"--dp/--tp: {MESH_NOT_PORTED}")
+    if args.from_wav:
+        return _cmd_dad_fused(args)
+    if not (args.clean and args.noisy):
+        raise ValueError("--clean and --noisy are required "
+                         "(or use --from-wav for fused training)")
+    cfg = dad_preset(args.corpus, clean_data_dir=args.clean, noisy_data_dir=args.noisy,
+                     **_sweep_cfg_kw(args))
     common = dict(experiment_name=args.name, scan_chunk=args.scan_chunk,
                   prefetch_depth=args.prefetch_depth, transfer_dtype=args.transfer_dtype,
-                  resident=resident, device=args.device)
+                  resident=RESIDENT[args.resident], device=args.device)
     if args.fold == "all":
-        run_cv(cfg, **common)
+        return _sweep_rc(run_cv(cfg, **common))
     else:
         CrossDomainTrainer(cfg, fold=int(args.fold), **common).train(resume=args.resume)
     return 0
 
 
+def _build_fused_from_args(args, cfg):
+    """The encoder config, its weights and the FusedConfig of ``--from-wav``
+    from the injection flags. The encoder runs attention through the
+    kernel unless ``--encoder-json`` sets ``use_flash_attention``."""
+    from .audio.noise import NOISE_TYPES
+    from .configs import EncoderConfig
+    from .models.convert import load_emotion2vec_checkpoint
+    from .parallel.fused import FusedConfig
+
+    if not args.checkpoint:
+        raise ValueError("--from-wav needs --checkpoint (emotion2vec weights)")
+    enc_kw = {"dtype": args.encoder_dtype, "use_flash_attention": True}
+    if args.encoder_json:
+        enc_kw.update(_load_encoder_json(args.encoder_json))
+    enc_cfg = EncoderConfig(**enc_kw)
+    enc_params = load_emotion2vec_checkpoint(args.checkpoint, enc_cfg)
+
+    snr_choices = (tuple(float(s) for s in args.snr_choices.split(","))
+                   if args.snr_choices else None)
+    bank_mode, type_idx = None, 0
+    if args.noise_root:
+        bank_mode = "random" if args.noise_mode == "random" else "fixed"
+        if args.noise_type not in NOISE_TYPES:
+            raise ValueError(f"unknown noise type {args.noise_type!r}; "
+                             f"expected one of {NOISE_TYPES}")
+        type_idx = NOISE_TYPES.index(args.noise_type)
+    fused_cfg = FusedConfig(
+        encoder=enc_cfg,
+        dad=cfg,
+        inject_snr_db=None if snr_choices else args.snr,
+        inject_snr_choices=snr_choices,
+        inject_noise_bank_mode=bank_mode,
+        inject_noise_type=type_idx,
+        cache_clean_features=True,
+    )
+    return enc_cfg, enc_params, fused_cfg
+
+
+def _cmd_dad_fused(args):
+    """The fused wav->train mode: injection, extraction and the DAD update
+    in each step (``train/fused_trainer.py``)."""
+    from .configs import dad_preset
+    from .train.fused_trainer import FusedCrossDomainTrainer, run_fused_cv
+
+    cfg = dad_preset(args.corpus, **_sweep_cfg_kw(args))
+    enc_cfg, enc_params, fused_cfg = _build_fused_from_args(args, cfg)
+    common = dict(
+        fused_cfg=fused_cfg,
+        noise_root=args.noise_root,
+        experiment_name=args.name,
+        prefetch_depth=args.prefetch_depth,
+        transfer_dtype=args.transfer_dtype,
+        resident=RESIDENT[args.resident],
+        scan_chunk=args.scan_chunk,
+        device=args.device,
+    )
+    if args.fold == "all":
+        return _sweep_rc(run_fused_cv(cfg, args.from_wav, enc_cfg, enc_params, **common))
+    else:
+        FusedCrossDomainTrainer(cfg, args.from_wav, enc_cfg, enc_params, fold=int(args.fold),
+                                **common).train(resume=args.resume)
+    return 0
+
+
 def _add_dad_parser(sub) -> None:
-    p = sub.add_parser("dad", help="feature-level DAD cross-domain training")
+    p = sub.add_parser("dad", help="DAD cross-domain training (features or fused wav)")
     p.add_argument("--corpus", choices=["iemocap", "casia", "emodb"], required=True)
     p.add_argument("--clean", default=None, help="clean feature dir")
     p.add_argument("--noisy", default=None, help="noisy feature dir")
-    # the fused wav->train mode's flags, parsed as the JAX package's CLI
-    # parses them; --from-wav itself is refused until that trainer is ported
     p.add_argument("--from-wav", default=None, metavar="MANIFEST_DIR",
-                   help="fused wav->train mode (not ported yet: exits 2)")
-    p.add_argument("--checkpoint", default=None, help="(--from-wav mode)")
+                   help="fused wav->train mode: train from the wav manifest "
+                        "(replaces --clean/--noisy; injection + extraction in each step)")
+    p.add_argument("--checkpoint", default=None,
+                   help="emotion2vec encoder weights (--from-wav mode)")
     p.add_argument("--encoder-dtype", default="bfloat16", help="(--from-wav mode)")
-    p.add_argument("--encoder-json", default=None, help="(--from-wav mode)")
-    p.add_argument("--snr", type=float, default=10.0, help="(--from-wav mode)")
-    p.add_argument("--snr-choices", default=None, help="(--from-wav mode)")
-    p.add_argument("--noise-root", default=None, help="(--from-wav mode)")
+    p.add_argument("--encoder-json", default=None,
+                   help="EncoderConfig overrides as inline JSON or a JSON file "
+                        "(--from-wav mode)")
+    p.add_argument("--snr", type=float, default=10.0, help="injection SNR dB (--from-wav mode)")
+    p.add_argument("--snr-choices", default=None,
+                   help="comma-separated SNRs drawn per clip (--from-wav mode)")
+    p.add_argument("--noise-root", default=None,
+                   help="NOISEX-92 5types dir: bank injection instead of white noise "
+                        "(--from-wav mode)")
     p.add_argument("--noise-mode", choices=["fixed", "random"], default="fixed",
-                   help="(--from-wav mode)")
-    p.add_argument("--noise-type", default="babble", help="(--from-wav mode)")
+                   help="fixed = --noise-type for every clip (root1); random = a "
+                        "type per clip (root2)")
+    p.add_argument("--noise-type", default="babble",
+                   help="NOISEX type for --noise-mode fixed")
     p.add_argument("--dp", type=int, default=0,
                    help="data-parallel size (multi-GPU, not ported yet: > 0 exits 2)")
     p.add_argument("--tp", type=int, default=1,
@@ -135,15 +239,18 @@ def _add_dad_parser(sub) -> None:
     # on the host, and 4 took 3x per-step's epoch time on an H100 (PERF.md)
     p.add_argument("--scan-chunk", type=int, default=0,
                    help="batches per chunk (0 = per-batch steps, the "
-                        "default; the same history either way)")
+                        "default; the same history either way). In --from-wav "
+                        "mode it chunks the resident corpus only")
     p.add_argument("--prefetch-depth", type=int, default=2,
                    help="batches assembled ahead on a worker thread (0 = sync)")
     p.add_argument("--transfer-dtype", default=None,
                    help="ship f32 features as this dtype + upcast on device "
                         "(e.g. bfloat16; halves H2D bytes, rounds inputs)")
     p.add_argument("--resident", choices=["auto", "on", "off"], default="auto",
-                   help="device-resident corpus: not ported yet, 'on' exits 2 "
-                        "and 'auto' streams batches from the host")
+                   help="hold the fold's training corpus on the device and gather "
+                        "batches there from per-step indices (features: clean + "
+                        "noisy stores; --from-wav: cached clean features + raw "
+                        "wavs); auto does so when it fits 8 GiB")
     p.add_argument("--resume", action="store_true")
     p.add_argument("--warmup-epochs", type=int, default=None,
                    help="override WARMUP_EPOCHS (and ECDA_START_EPOCH)")

@@ -9,6 +9,8 @@ from .folds import (
 )
 from .batching import Batch, PaddedBatchIterator, pad_to_bucket
 from .prefetch import prefetch
+from .manifests import ManifestEntry, read_manifest, wav_frames, write_manifest
+from .wavstore import WAV_BUCKETS, PaddedWavIterator, WavBatch, WavStore, load_wav_store
 
 __all__ = [
     "FeatureStore",
@@ -24,4 +26,13 @@ __all__ = [
     "PaddedBatchIterator",
     "pad_to_bucket",
     "prefetch",
+    "ManifestEntry",
+    "read_manifest",
+    "wav_frames",
+    "write_manifest",
+    "WAV_BUCKETS",
+    "PaddedWavIterator",
+    "WavBatch",
+    "WavStore",
+    "load_wav_store",
 ]

@@ -1,8 +1,8 @@
 """Batched feature extraction: length-bucketed padded batches through the
 encoder. The padding-exact batched forward (``layers.PositionalConv``)
 gives the same features as per-clip extraction. Ported so far:
-``FeatureExtractor.extract_clips``; ``extract_manifest`` needs the data and
-wav I/O modules and comes with them.
+``FeatureExtractor.extract_clips`` (the serving path and the fused
+trainer's startup); ``extract_manifest`` comes with ``cli extract``.
 """
 
 from __future__ import annotations

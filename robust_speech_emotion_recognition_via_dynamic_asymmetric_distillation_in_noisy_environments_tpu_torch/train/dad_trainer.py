@@ -10,21 +10,20 @@ teacher-student disagreement, the best checkpoint (a reference-layout
 ``.pth``), early stopping on noisy weighted accuracy, resume, the analysis
 dumps and the final test-set evaluation.
 
-Nothing in an epoch reads a value back per step: the epoch's loss sums
-accumulate on the device (in float64, the order of the host sums the JAX
-package takes, so the numbers are the same), the tracked samples' rows are
-taken once at the epoch's end, and validation pulls its predictions once
-per pass.
+The training batches come from the host (assembled and copied ahead by
+``data/prefetch.py``) or, with ``resident``, from the fold's corpora held on
+the device and gathered there per step (``parallel/resident.py``); the
+numbers are the same either way. Nothing in an epoch reads a value back
+per step: the step metrics and the tracked samples' rows are taken once at
+the epoch's end, and validation pulls its predictions once per pass.
 
 Not ported yet, and refused with ``NotImplementedError``: a mesh (ROADMAP.md
-§1 item 9, multi-GPU) and the device-resident corpus with ``resident=True``
-(ROADMAP.md §1 item 4). ``resident="auto"`` streams, as the JAX package
-does when the corpus is over its budget; the numbers are the same either
-way.
+§1 item 9, multi-GPU).
 """
 
 from __future__ import annotations
 
+import itertools
 import os
 import re
 from collections import defaultdict
@@ -50,6 +49,16 @@ from ..data.batching import PaddedBatchIterator, paired_epoch
 from ..data.folds import corpus_fold_split
 from ..data.prefetch import prefetch, tree_map
 from ..data.store import FeatureStore, load_feature_store
+from ..parallel.resident import (
+    make_resident_dad_epoch_runner,
+    make_resident_dad_step,
+    materialize_metrics,
+    materialize_tracking,
+    paired_index_epoch,
+    resident_from_store,
+    resident_nbytes,
+    upload_index,
+)
 from ..eval.metrics import evaluate_domain
 from ..eval.reports import best_detailed_results, final_test_report, save_confusion_matrices
 from ..models.convert import (
@@ -68,8 +77,7 @@ logger = get_logger(__name__)
 METRIC_KEYS = ("total_loss", "supervised_ce_loss", "consistency_loss", "ecda_loss")
 MESH_NOT_PORTED = ("a mesh (multi-GPU data parallelism) is not ported yet: "
                    "ROADMAP.md §1 item 9")
-RESIDENT_NOT_PORTED = ("the device-resident feature corpus is not ported yet: "
-                       "ROADMAP.md §1 item 4")
+RESIDENT_MAX_BYTES = 8 << 30
 
 
 def extract_noise_info(noisy_path: str) -> Dict:
@@ -137,6 +145,26 @@ def _safe_name(name: str) -> str:
     return re.sub(r'[\\/*?:"<>|]', "", name)
 
 
+def chunked(items: Iterable, size: int):
+    """Consecutive lists of ``size`` items; the last may be shorter."""
+    it = iter(items)
+    while chunk := list(itertools.islice(it, size)):
+        yield chunk
+
+
+def average_metrics(rows: np.ndarray, weights) -> Dict[str, float]:
+    """The epoch's mean of each metric from its (S, K) rows of METRIC_KEYS,
+    each counted ``weights[i]`` times (a chunk's row is its mean): the JAX
+    package's host sums, in step order."""
+    totals = dict.fromkeys(METRIC_KEYS, 0.0)
+    n = 0
+    for m, row in zip(weights, rows):
+        for k, v in zip(METRIC_KEYS, row):
+            totals[k] += float(v) * m
+        n += m
+    return {k: v / n for k, v in totals.items()} if n else {}
+
+
 class CrossDomainTrainer:
     def __init__(
         self,
@@ -151,6 +179,7 @@ class CrossDomainTrainer:
         transfer_dtype: Optional[str] = None,
         mesh=None,
         resident=False,
+        resident_max_bytes: int = RESIDENT_MAX_BYTES,
         device="cuda",
         step_draws: Optional[Callable[[int, int], StepDraws]] = None,
     ):
@@ -168,6 +197,12 @@ class CrossDomainTrainer:
         ``pretrain_params``: a ``PretrainHead`` state dict loaded into the
         student and the teacher (else ``cfg.pretrained_weight``'s file).
 
+        ``resident``: True / False / "auto": hold the fold's training
+        stores (clean and noisy) on the device and gather each batch there
+        from its indices (``parallel/resident.py``) instead of shipping the
+        batches. "auto" does so when they fit ``resident_max_bytes``. The
+        history is the streamed path's.
+
         ``device``: "cuda" (default; raises without a GPU) or "cpu".
 
         ``step_draws(epoch, step)``: a test hook that gives each training
@@ -175,12 +210,12 @@ class CrossDomainTrainer:
         """
         if mesh is not None:
             raise NotImplementedError(MESH_NOT_PORTED)
-        if resident is True:
-            raise NotImplementedError(RESIDENT_NOT_PORTED + "; resident='auto' streams")
         self.device = resolve_device(device)
         self.cfg = cfg
         self.fold = fold
         self.scan_chunk = scan_chunk
+        self._resident_mode = resident
+        self._resident_max_bytes = resident_max_bytes
         self.prefetch_depth = prefetch_depth
         self.transfer_dtype = transfer_dtype
         self.step_draws = step_draws
@@ -198,8 +233,6 @@ class CrossDomainTrainer:
         self.bias_analysis_log = []
         self.tracked_sample_indices: Optional[set] = None
 
-        if resident == "auto":
-            logger.info("%s: streaming batches from the host", RESIDENT_NOT_PORTED)
         self._setup_data(clean_store, noisy_store)
         self._setup_model(pretrain_params)
         self._setup_anchors()
@@ -274,15 +307,12 @@ class CrossDomainTrainer:
         self.calib_noisy = it(noisy_store, nva, False, bs=cfg.batch_size * 2)
 
         n_noisy_train = len(ntr)
-        self._tracked_ids = None
         if n_noisy_train > cfg.num_tracked_samples:
             rng = np.random.default_rng(cfg.random_seed)
             self.tracked_sample_indices = set(
                 rng.choice(n_noisy_train, cfg.num_tracked_samples, replace=False)
                 .tolist()
             )
-            self._tracked_ids = torch.tensor(sorted(self.tracked_sample_indices),
-                                             device=self.device)
 
     def _setup_model(self, pretrain_params):
         cfg = self.cfg
@@ -315,6 +345,28 @@ class CrossDomainTrainer:
             self._epoch_runner = make_dad_epoch_runner(self.head, self.tx, self.cfg)
         self.generator = torch.Generator(device=self.device).manual_seed(
             self.cfg.random_seed + 1)
+        self._setup_feature_resident()
+
+    def _setup_feature_resident(self) -> None:
+        """Uploads the fold's clean and noisy training stores and builds the
+        gathering step or runner; or leaves the streamed path (resident
+        False, or "auto" over its budget)."""
+        self._resident = None
+        if self._resident_mode is False:
+            return
+        clean_sub, noisy_sub = self.clean_train.store, self.noisy_train.store
+        est = resident_nbytes(clean_sub) + resident_nbytes(noisy_sub)
+        if self._resident_mode == "auto" and est > self._resident_max_bytes:
+            logger.info("resident corpus disabled: estimated %.1f GB > budget %.1f GB; "
+                        "streaming batches from the host", est / 1e9,
+                        self._resident_max_bytes / 1e9)
+            return
+        self._resident = (resident_from_store(clean_sub, self.device),
+                          resident_from_store(noisy_sub, self.device))
+        if self.scan_chunk:
+            self._resident_runner = make_resident_dad_epoch_runner(self.head, self.tx, self.cfg)
+        else:
+            self._resident_step = make_resident_dad_step(self.head, self.tx, self.cfg)
 
     # ------------------------------------------------------------------
     def is_warmup(self, epoch: int) -> bool:
@@ -338,19 +390,22 @@ class CrossDomainTrainer:
         self.state = self.state._replace(
             opt_state=set_learning_rate(self.state.opt_state, cosine_lr(cfg, epoch))
         )
-        sums = torch.zeros(len(METRIC_KEYS), dtype=torch.float64, device=self.device)
+        steps: list = []  # (steps counted, metrics) per dispatch
         tracked: list = []
-        if self._epoch_runner is not None:
-            n = self._run_epoch_scanned(epoch, scalars, sums, tracked)
+        if self._resident is not None and self.scan_chunk:
+            self._run_epoch_resident_scanned(epoch, scalars, steps, tracked)
+        elif self._resident is not None:
+            self._run_epoch_resident(epoch, scalars, steps, tracked)
+        elif self._epoch_runner is not None:
+            self._run_epoch_scanned(epoch, scalars, steps, tracked)
         else:
-            n = self._run_epoch_streamed(epoch, scalars, sums, tracked)
+            self._run_epoch_streamed(epoch, scalars, steps, tracked)
         self._log_tracked(epoch, tracked)
         self._epoch_end_dacp(epoch)
-        if not n:
-            return {}
-        return dict(zip(METRIC_KEYS, (sums / n).tolist()))
+        rows = materialize_metrics([metrics for _, metrics in steps], METRIC_KEYS)
+        return average_metrics(rows, [m for m, _ in steps])
 
-    def _run_epoch_streamed(self, epoch, scalars, sums, tracked) -> int:
+    def _run_epoch_streamed(self, epoch, scalars, steps, tracked) -> None:
         n = 0
         pairs = prefetch(
             paired_epoch(self.clean_train, self.noisy_train, epoch),
@@ -362,31 +417,24 @@ class CrossDomainTrainer:
             self.state, metrics, tracking = self.train_step(
                 self.state, clean_b, noisy_b, scalars, self.anchors, self.generator, draws
             )
-            sums += torch.stack([metrics[k] for k in METRIC_KEYS]).double()
+            steps.append((1, metrics))
             n += 1
             if self._tracking(epoch):
                 tracked.append(tracking)
-        return n
 
     def _iter_scanned_chunks(self, epoch):
         """(clean_stacked, noisy_stacked, each noisy batch's own frame
         count) per chunk; the stacking runs in the prefetch worker."""
-        buf = []
-        n_pairs = min(len(self.clean_train), len(self.noisy_train))
-        for i, pair in enumerate(
-            paired_epoch(self.clean_train, self.noisy_train, epoch)
-        ):
-            buf.append(pair)
-            if len(buf) == self.scan_chunk or i == n_pairs - 1:
-                t_pad = max(b.feats.shape[1] for pair_ in buf for b in pair_)
-                yield (
-                    stack_batches([p[0] for p in buf], t_pad),
-                    stack_batches([p[1] for p in buf], t_pad),
-                    tuple(p[1].feats.shape[1] for p in buf),
-                )
-                buf = []
+        for buf in chunked(paired_epoch(self.clean_train, self.noisy_train, epoch),
+                           self.scan_chunk):
+            t_pad = max(b.feats.shape[1] for pair in buf for b in pair)
+            yield (
+                stack_batches([p[0] for p in buf], t_pad),
+                stack_batches([p[1] for p in buf], t_pad),
+                tuple(p[1].feats.shape[1] for p in buf),
+            )
 
-    def _run_epoch_scanned(self, epoch, scalars, sums, tracked) -> int:
+    def _run_epoch_scanned(self, epoch, scalars, steps, tracked) -> None:
         n = 0
         chunks = prefetch(
             self._iter_scanned_chunks(epoch), depth=self.prefetch_depth,
@@ -402,31 +450,71 @@ class CrossDomainTrainer:
                 self.state, clean_s, noisy_s, scalars, self.anchors, self.generator, draws
             )
             m = len(t_own)
-            sums += torch.stack([metrics[k] for k in METRIC_KEYS]).double() * m
+            steps.append((m, metrics))
             n += m
             if self._tracking(epoch):
                 tracked.extend({k: v[s] for k, v in tracking.items()} for s in range(m))
-        return n
+
+    def _run_epoch_resident(self, epoch, scalars, steps, tracked) -> None:
+        """Per step the host ships two (B,) index vectors; the batches are
+        gathered on the device at their own buckets."""
+        clean_c, noisy_c = self._resident
+        cap = self.clean_train.max_frames
+        for n, ((cidx, t_c), (nidx, t_n)) in enumerate(
+                paired_index_epoch(self.clean_train, self.noisy_train, epoch)):
+            self.state, metrics, tracking = self._resident_step(
+                self.state, clean_c, noisy_c, upload_index(cidx, self.device),
+                upload_index(nidx, self.device), scalars, self.anchors, self.generator,
+                lambda b, n=n: self._draws(epoch, n, b.feats, b.padding_mask),
+                t_clean=t_c, t_noisy=t_n, frame_cap=cap,
+            )
+            steps.append((1, metrics))
+            if self._tracking(epoch):
+                tracked.append(tracking)
+
+    def _run_epoch_resident_scanned(self, epoch, scalars, steps, tracked) -> None:
+        """Chunks of ``scan_chunk`` steps, one (S, B) index upload each, the
+        batches padded to the chunk-common frame count as in
+        ``_run_epoch_scanned``."""
+        clean_c, noisy_c = self._resident
+        cap = self.clean_train.max_frames
+        n = 0
+        for buf in chunked(paired_index_epoch(self.clean_train, self.noisy_train, epoch),
+                           self.scan_chunk):
+            t_own = [t for _c, (_idx, t) in buf]
+            t_pad = max(t for p in buf for (_idx, t) in p)
+
+            def draws(s, b, n0=n):
+                t = t_own[s]
+                return self._draws(epoch, n0 + s, b.feats[:, :t], b.padding_mask[:, :t])
+
+            self.state, metrics, tracking = self._resident_runner(
+                self.state, clean_c, noisy_c,
+                upload_index(np.stack([c for (c, _), _ in buf]), self.device),
+                upload_index(np.stack([x for _, (x, _) in buf]), self.device),
+                scalars, self.anchors, self.generator, draws, t_pad=t_pad, frame_cap=cap,
+            )
+            m = len(buf)
+            steps.append((m, metrics))
+            n += m
+            if self._tracking(epoch):
+                tracked.extend({k: v[s] for k, v in tracking.items()} for s in range(m))
 
     def _log_tracked(self, epoch: int, tracked: list) -> None:
         """The tracked samples' rows of this epoch's steps, in step and row
         order, taken from the device in one pass."""
-        if not tracked:
-            return
-        ids = torch.cat([t["ids"] for t in tracked]).long()
-        rows = torch.isin(ids, self._tracked_ids).nonzero()[:, 0]
-        host = {k: torch.cat([t[k] for t in tracked])[rows].cpu().numpy()
-                for k in ("ids", "pseudo_label", "certainty_score", "is_masked_in")}
-        for i in range(len(host["ids"])):
-            self.bias_analysis_log.append(
-                {
-                    "epoch": epoch,
-                    "sample_id": int(host["ids"][i]),
-                    "pseudo_label": int(host["pseudo_label"][i]),
-                    "certainty_score": float(host["certainty_score"][i]),
-                    "is_masked_in": bool(host["is_masked_in"][i]),
-                }
-            )
+        for host in materialize_tracking(tracked):
+            for i, sid in enumerate(host["ids"]):
+                if int(sid) in self.tracked_sample_indices:
+                    self.bias_analysis_log.append(
+                        {
+                            "epoch": epoch,
+                            "sample_id": int(sid),
+                            "pseudo_label": int(host["pseudo_label"][i]),
+                            "certainty_score": float(host["certainty_score"][i]),
+                            "is_masked_in": bool(host["is_masked_in"][i]),
+                        }
+                    )
 
     def _epoch_end_dacp(self, epoch: int) -> None:
         """Post-epoch DACP quality update and its analysis history."""
@@ -665,6 +753,7 @@ def run_cv(
     transfer_dtype: Optional[str] = None,
     mesh=None,
     resident=False,
+    resident_max_bytes: int = RESIDENT_MAX_BYTES,
     device="cuda",
 ) -> Dict:
     """Full K-fold cross-validation sweep with an aggregate summary report.
@@ -693,6 +782,7 @@ def run_cv(
                 prefetch_depth=prefetch_depth,
                 transfer_dtype=transfer_dtype,
                 resident=resident,
+                resident_max_bytes=resident_max_bytes,
                 device=device,
             )
             trainer.train()

@@ -363,23 +363,34 @@ def test_cli_dad_writes_the_jax_cli_tree(tmp_path, monkeypatch):
     assert any(p.endswith("FINAL_test_set_results.json") for p in trees["port"])
 
 
-def test_cli_dad_refuses_what_is_not_ported(tmp_path, capsys, monkeypatch):
+def test_cli_dad_refuses_what_is_not_ported(tmp_path, capsys, caplog, monkeypatch):
+    """The multi-GPU flags are refused, naming ROADMAP item 9; ``--resident
+    on`` and ``--from-wav`` are ported (the latter fails without
+    ``--checkpoint``, as the JAX CLI does)."""
+    monkeypatch.chdir(tmp_path)
     base = ["dad", "--corpus", "iemocap", "--device", "cpu"]
-    for extra, words in ((["--from-wav", "manifests"], "item 3"),
-                         (["--clean", "c", "--noisy", "n", "--dp", "2"], "item 9"),
-                         (["--clean", "c", "--noisy", "n", "--tp", "2"], "item 9"),
-                         (["--clean", "c", "--noisy", "n", "--resident", "on"], "item 4")):
+    for extra in (["--clean", "c", "--noisy", "n", "--dp", "2"],
+                  ["--clean", "c", "--noisy", "n", "--tp", "2"],
+                  ["--from-wav", "manifests", "--dp", "2"]):
         assert cli.main(base + extra) == 2
-        assert words in capsys.readouterr().err
+        assert "item 9" in capsys.readouterr().err
     assert "dad" not in cli.NOT_PORTED
-    with pytest.raises(SystemExit) as e:
-        cli.main(base)  # no --clean/--noisy
-    assert e.value.code == 2
-    cfg = dad_preset("iemocap", noisy_data_dir=str(tmp_path))
+    for extra, words in (([], "--clean and --noisy are required"),
+                         (["--from-wav", "manifests"], "--from-wav needs --checkpoint")):
+        with pytest.raises(SystemExit) as e:
+            cli.main(base + extra)
+        assert e.value.code == 2
+        assert words in capsys.readouterr().err
+    clean, noisy = _write_stores(str(tmp_path))
+    with caplog.at_level("INFO"):
+        assert cli.main(base + ["--clean", clean, "--noisy", noisy, "--resident", "on",
+                                "--epochs", "1", "--batch-size", "8"]) == 0
+    assert "resident corpus: 36 clips" in caplog.text
+    cfg = dad_preset("iemocap", clean_data_dir=clean, noisy_data_dir=noisy, input_dim=D,
+                     batch_size=8)
     with pytest.raises(NotImplementedError, match="item 9"):
         CrossDomainTrainer(cfg, mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 4"):
-        CrossDomainTrainer(cfg, resident=True, device="cpu")
+    assert CrossDomainTrainer(cfg, resident=True, device="cpu")._resident is not None
 
 
 def test_cli_dad_without_a_gpu_and_without_device_cpu_fails(tmp_path, monkeypatch):
