@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Drives the PyTorch port's paths on one NVIDIA GPU and checks them: the
 serving path, the fused-norm probe, the conv front end through its kernel,
-the fused extract+train step, the feature-level trainer and the fused
-wav->train trainer.
+the fused extract+train step, the feature-level trainer, the fused
+wav->train trainer, and stage 1 (manifest, injection, extraction) with
+inference.
 
     python3 chip_smoke.py
 
@@ -85,10 +86,10 @@ Phases (any failure raises and the script exits non-zero without a result):
    the card (``--resident auto``), and the same first steps of a resident
    and a ``--resident off`` trainer from one seed must agree.
    ``--only trainer`` runs this phase alone.
-9. the fused trainer: a synthetic IEMOCAP-layout wav corpus (5531 clips
-   over Ses01-Ses05 with an ``.emo`` sidecar, 16 kHz int16, lognormal
-   lengths of mean ~4.5 s clipped to 0.6-30 s, a tone per class) written
-   with the port's ``write_wav`` and ``write_manifest``, and a random
+9. the fused trainer: a synthetic IEMOCAP wav corpus (5531 clips over
+   Ses01-Ses05, 16 kHz int16, lognormal lengths of mean ~4.5 s clipped to
+   0.6-30 s, a tone per class) in IEMOCAP's raw layout, its manifest and
+   ``.emo`` sidecar from ``cli manifest`` (phase 10), and a random
    emotion2vec-base checkpoint, then ``cli.main(["dad", "--corpus",
    "iemocap", "--from-wav", ..., "--checkpoint", ..., "--fold", "0",
    "--epochs", "3", "--warmup-epochs", "1", "--snr", "10"])`` on the card:
@@ -107,7 +108,27 @@ Phases (any failure raises and the script exits non-zero without a result):
    seconds, clips/s, H2D bytes a step (resident and streamed), the wav
    buckets of the steps and a torch.profiler breakdown of one step.
    ``--only fused`` builds attention.cu and runs phases 1, 2 and 9.
-10. prints the ``nvidia-smi`` line, a ``kernels`` JSON line (all four
+10. stage 1 and inference: the corpus of phase 9 is written before it, as
+    IEMOCAP's raw tree (``Session{N}/sentences/wav/<dialog>/<utt>.wav`` and
+    EmoEvaluation files), and ``cli manifest --corpus iemocap`` builds the
+    manifest that phase 9 trains from. After phase 9: ``cli inject
+    --snr_db 10 --verify`` with the native engine and with the numpy
+    engine (both must pass verification; seconds and achieved SNR
+    printed); ``cli extract`` of the clean tree and of the numpy-injected
+    tree (bf16, attention through the kernel: seconds, clips/s, 12
+    attention launches per batch of 16, peak device GB), whole batches of
+    each over every wav bucket extracted again through the plain attention
+    path and held against the store clip by clip; ``cli infer --split test
+    --fold 0`` of phase 9's best .pth over the noisy store on the card and
+    on the CPU (noisy WA above chance; predictions equal or flipped only at
+    a near-tie, with the count and margins printed); ``cli preprocess``
+    over the whole corpus for one condition of each real-noise mode of the
+    reference's grid (babble at 10 dB, and a random NOISEX type a clip at
+    10 dB; a seeded synthetic bank of the five NOISEX-92 files; native
+    engine, verification, extraction on the card): seconds a condition,
+    its injection and its extraction pass. ``--only preprocess`` builds
+    attention.cu and runs phases 1, 2, 9 and 10.
+11. prints the ``nvidia-smi`` line, a ``kernels`` JSON line (all four
     kernels; the conv entry sums its seven layers' numbers), then the
     result line ``{"ok": true, "device": {...}}`` last.
 """
@@ -124,6 +145,7 @@ import itertools
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -147,21 +169,33 @@ from robust_speech_emotion_recognition_via_dynamic_asymmetric_distillation_in_no
 from robust_speech_emotion_recognition_via_dynamic_asymmetric_distillation_in_noisy_environments_tpu_torch.dad.train_step import (
     draw_feature_step,
 )
+from robust_speech_emotion_recognition_via_dynamic_asymmetric_distillation_in_noisy_environments_tpu_torch.audio import (
+    NOISE_FILE_MAPPING,
+    cli as audio_cli,
+)
 from robust_speech_emotion_recognition_via_dynamic_asymmetric_distillation_in_noisy_environments_tpu_torch.audio.wavio import (
+    read_wav,
     write_wav,
 )
 from robust_speech_emotion_recognition_via_dynamic_asymmetric_distillation_in_noisy_environments_tpu_torch.data import (
-    ManifestEntry,
+    load_feature_store,
     prefetch,
+    read_manifest,
     write_feature_store,
-    write_manifest,
 )
 from robust_speech_emotion_recognition_via_dynamic_asymmetric_distillation_in_noisy_environments_tpu_torch.data.batching import (
+    pad_to_bucket,
     paired_epoch,
+)
+from robust_speech_emotion_recognition_via_dynamic_asymmetric_distillation_in_noisy_environments_tpu_torch.eval import (
+    inference,
 )
 from robust_speech_emotion_recognition_via_dynamic_asymmetric_distillation_in_noisy_environments_tpu_torch.eval.serving import (
     EmotionPredictor,
     PredictionServer,
+)
+from robust_speech_emotion_recognition_via_dynamic_asymmetric_distillation_in_noisy_environments_tpu_torch.exp import (
+    write_noisy_manifest,
 )
 from robust_speech_emotion_recognition_via_dynamic_asymmetric_distillation_in_noisy_environments_tpu_torch.models.convert import (
     fairseq_to_torch_encoder,
@@ -1692,10 +1726,13 @@ WAV_SECONDS, WAV_MEAN_SECONDS, WAV_SIGMA = (0.6, 30.0), 4.5, 0.6
 FUSED_EPOCHS, EXTRACT_BATCH = 3, 16
 
 
-def write_wav_corpus(root: str, seed: int) -> tuple:
-    """An IEMOCAP-layout wav corpus with its manifest and ``.emo`` sidecar,
-    written with the port's ``write_wav`` and ``write_manifest``; returns the
-    manifest directory and the corpus's sizes."""
+def write_iemocap_corpus(root: str, seed: int) -> dict:
+    """IEMOCAP's raw layout, written with the port's ``write_wav``:
+    ``IEMOCAP/Session{N}/sentences/wav/<dialog>/<utt>.wav`` and one
+    EmoEvaluation file per dialog (``[start - end]\tutt\tlabel\t[v, a, d]``
+    lines; every other happy clip labelled ``exc``, which the parser folds
+    into ``hap``, and a ``fru`` line per dialog, which it drops). Returns the
+    two directories and the corpus's sizes."""
     rng = np.random.default_rng(seed)
     labels = np.repeat(list(FEATURE_CLASSES), list(FEATURE_CLASSES.values()))
     rng.shuffle(labels)
@@ -1704,19 +1741,32 @@ def write_wav_corpus(root: str, seed: int) -> tuple:
     lengths = (np.clip(rng.lognormal(mu, WAV_SIGMA, n), *WAV_SECONDS) * SAMPLE_RATE).astype(
         np.int64)
     class_ids = np.searchsorted(list(FEATURE_CLASSES), labels)
-    os.makedirs(f"{root}/wav")
-    entries = []
+    raw, eval_dir = f"{root}/IEMOCAP", f"{root}/EmoEvaluation"
+    os.makedirs(eval_dir)
+    dialogs = collections.defaultdict(list)
     for i, (t, c, label) in enumerate(zip(lengths, class_ids, labels)):
-        name = f"Ses0{i % 5 + 1}{'FM'[i // 5 % 2]}_impro0{i % 7}_{'FM'[i // 5 % 2]}{i:04d}"
+        gender = "FM"[i // 5 % 2]
+        dialog = f"Ses0{i % 5 + 1}{gender}_impro0{i % 7}"
+        name = f"{dialog}_{gender}{i:04d}"
         f = 150.0 * (c + 1) * (1 + 0.02 * rng.standard_normal())
         x = (0.05 + 0.1 * c) * np.sin(2 * np.pi * f / SAMPLE_RATE * np.arange(t, dtype=np.float32))
         x += 0.005 * rng.standard_normal(t, dtype=np.float32)
-        write_wav(f"{root}/wav/{name}.wav", x, SAMPLE_RATE)
-        entries.append(ManifestEntry(f"{name}.wav", int(t), str(label), name[:5], name))
-    write_manifest(f"{root}/manifests", f"{root}/wav", entries, "emo")
-    return f"{root}/manifests", dict(clips=n, hours=float(lengths.sum() / SAMPLE_RATE / 3600),
-                                     mean_s=float(lengths.mean() / SAMPLE_RATE),
-                                     max_s=float(lengths.max() / SAMPLE_RATE))
+        wav_dir = f"{raw}/Session{i % 5 + 1}/sentences/wav/{dialog}"
+        os.makedirs(wav_dir, exist_ok=True)
+        write_wav(f"{wav_dir}/{name}.wav", x, SAMPLE_RATE)
+        start = 2.0 * len(dialogs[dialog])
+        emo = "exc" if label == "hap" and i % 2 else str(label)
+        dialogs[dialog].append(f"[{start:.4f} - {start + t / SAMPLE_RATE:.4f}]\t{name}\t{emo}\t"
+                               "[2.5000, 2.5000, 2.5000]")
+    for dialog, rows in dialogs.items():
+        rows.append(f"[0.0000 - 1.0000]\t{dialog}_X9999\tfru\t[2.0000, 3.5000, 3.5000]")
+        with open(f"{eval_dir}/{dialog}.txt", "w") as fh:
+            fh.write("% [START_TIME - END_TIME] TURN_NAME EMOTION [V, A, D]\n\n"
+                     + "\n\n".join(rows) + "\n")
+    return dict(raw=raw, eval_dir=eval_dir, clips=n, dialogs=len(dialogs),
+                hours=float(lengths.sum() / SAMPLE_RATE / 3600),
+                mean_s=float(lengths.mean() / SAMPLE_RATE),
+                max_s=float(lengths.max() / SAMPLE_RATE))
 
 
 class StartupProbe:
@@ -1839,148 +1889,469 @@ def kernel_against_plain(res_trainer, res_avg: dict, make_plain, epoch: int,
     return out
 
 
-def run_fused_trainer() -> dict:
+def run_fused_trainer(root: str, manifests: str, ckpt: str) -> dict:
     """Phase 9: ``cli dad --from-wav`` on the card at the iemocap preset's
-    full width, attention through the kernel, the corpus resident."""
-    with tempfile.TemporaryDirectory(prefix="dad_fused_trainer_") as root, \
-            contextlib.chdir(root):
+    full width, attention through the kernel, the corpus resident; from the
+    manifest that phase 10's ``cli manifest`` built, in its directory."""
+    enc_cfg = EncoderConfig(dtype="bfloat16", use_flash_attention=True)
+    argv = ["dad", "--corpus", "iemocap", "--from-wav", manifests, "--checkpoint", ckpt,
+            "--fold", "0", "--epochs", str(FUSED_EPOCHS), "--warmup-epochs", "1",
+            "--snr", "10", "--name", "fused"]
+
+    zero_kernel_launches()
+    torch.cuda.reset_peak_memory_stats()
+    held_gb = torch.cuda.memory_allocated() / 1e9  # earlier phases' tensors, in the peak
+    probe = TrainerProbe(fused_trainer, FusedCrossDomainTrainer,
+                         {"make_fused_extract_train_step": batch_bytes,
+                          "make_resident_fused_step": index_bytes})
+    with probe, StartupProbe() as startup:
         t0 = time.perf_counter()
-        manifests, corpus = write_wav_corpus(root, seed=0)
+        rc = cli.main(argv)
+        run_s = time.perf_counter() - t0
+    launches = kernel_launches()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    if rc != 0:
+        raise AssertionError(f"cli dad --from-wav returned {rc}")
+    trainer = probe.trainers[-1]
+    if trainer._resident is None:
+        raise AssertionError("--resident auto did not engage the resident corpus")
+    resident_mb = sum(c.flat.nbytes for c in trainer._resident) / 1e6
+    blocks = trainer.fused_cfg.encoder.prenet_depth + trainer.fused_cfg.encoder.depth
+    n = trainer.wav_store.num
+    extract_batches = -(-n // EXTRACT_BATCH)
+    steps = len(probe.events)
+    per_epoch = min(len(trainer.clean_train), len(trainer.noisy_wav_train))
+    if steps != FUSED_EPOCHS * per_epoch:
+        raise AssertionError(f"{steps} training steps, expected {FUSED_EPOCHS} x {per_epoch}")
+    want = dict(flash_attention=blocks * (2 * extract_batches + steps), fused_layernorm=0,
+                fused_conv_ln_gelu=0, copy_rows=0)
+    if launches != want:
+        raise AssertionError(f"kernel launches {launches}, expected {want} ({blocks} x (2 x "
+                             f"{extract_batches} extraction batches + {steps} steps))")
+    checks = check_trainer_run(trainer, FUSED_EPOCHS)
+    best_path = trainer.best_path
+    history = read_history(trainer)
+    if not history["supervised_ce_loss"][2] < history["supervised_ce_loss"][0]:
+        raise AssertionError(f"clean CE did not fall: {history['supervised_ce_loss']}")
+    last = FUSED_EPOCHS - 1
+    rec = next(e for e in probe.epochs if e["epoch"] == last)
+    ms = probe.step_ms(last)
+    clips = 2 * min(per_epoch * trainer.cfg.batch_size, trainer.clean_train.store.num)
+    buckets = collections.Counter(
+        t for e in range(FUSED_EPOCHS)
+        for _c, (_i, t) in resident_mod.paired_index_epoch(trainer.clean_train,
+                                                           trainer.noisy_wav_train, e))
+    streamed = streamed_mb_per_step(trainer.clean_train, trainer.noisy_wav_train, last,
+                                    trainer.cfg.input_dim)
+    info = dict(
+        startup_s=startup.summary(), run_s=run_s, resident_mb=resident_mb,
+        peak_device_gb=peak_gb, held_before_gb=held_gb, steps_per_epoch=per_epoch,
+        ms_per_step_median=float(np.median(ms)), ms_per_step_range=[min(ms), max(ms)],
+        epoch_s=[e["seconds"] for e in probe.epochs], clips_per_s=clips / rec["seconds"],
+        h2d_bytes_per_step_resident=probe.h2d_mb_per_step(last)["float32"] * 1e6,
+        h2d_mb_per_step_streamed=streamed,
+        wav_buckets_of_steps={str(k): v for k, v in sorted(buckets.items())},
+        kernel_launches=launches)
+    print("train_fused: run " + json.dumps(checks), flush=True)
+    print("train_fused: times " + json.dumps(info), flush=True)
+    del probe
+
+    # one resident step at the most common wav bucket, profiled
+    t_wav = buckets.most_common(1)[0][0]
+    (cidx, t_c), (widx, _t) = next(
+        p for p in resident_mod.paired_index_epoch(trainer.clean_train,
+                                                   trainer.noisy_wav_train, last)
+        if p[1][1] == t_wav)
+    step = fused_trainer.make_resident_fused_step(trainer.encoder, trainer.head, trainer.tx,
+                                                  trainer.fused_cfg)
+    scalars = StepScalars.for_epoch(trainer.cfg, last)
+    clean_c, wav_c = trainer._resident
+    args = (trainer.state, clean_c, wav_c, torch.from_numpy(cidx).cuda(),
+            torch.from_numpy(widx).cuda(), scalars, trainer.anchors, trainer.generator)
+    step(*args, t_clean=t_c, t_wav=t_wav, frame_cap=trainer.clean_train.max_frames)
+    profile = profile_step(lambda: step(*args, t_clean=t_c, t_wav=t_wav,
+                                        frame_cap=trainer.clean_train.max_frames))
+    attn = profile["by_group_ms"].get("attention kernel", 0.0)
+    profile.update(wav_bucket=t_wav, clean_frames=t_c,
+                   attention_share=attn / profile["device_ms"])
+    print("profile: fused train step " + json.dumps(profile), flush=True)
+
+    # resident against streamed, then kernel against plain attention:
+    # fresh trainers, DACP opened; the kernel's from this run's startup
+    shared = dict(wav_store=trainer.wav_store, extractor=trainer.extractor,
+                  clean_store=trainer.clean_store, noisy_store=trainer.noisy_store,
+                  noise_clips=None)
+    cfg = dataclasses.replace(trainer.cfg, results_base_dir="compare",
+                              dacp=dataclasses.replace(trainer.cfg.dacp, **DACP_OPEN))
+    fused_cfg = trainer.fused_cfg
+    del trainer, step, args, clean_c, wav_c
+    torch.cuda.empty_cache()
+
+    def make(resident, startup=shared, name="kernel"):
+        enc = startup["extractor"].cfg
+        return record_tracking(FusedCrossDomainTrainer(
+            cfg, manifests, enc, None, fused_cfg=dataclasses.replace(fused_cfg, encoder=enc),
+            experiment_name=f"{name}_{resident}", shared=startup, resident=resident))
+
+    report, res = resident_against_streamed(make, epoch=last)
+    print(f"train_fused: resident vs --resident off, {COMPARE_STEPS} steps of epoch {last} "
+          "from one seed: " + json.dumps(report), flush=True)
+
+    # the plain attention path's own startup: both extraction passes
+    # through it, so that the stores the kernel extracted are held
+    # against it too
+    plain_cfg = dataclasses.replace(enc_cfg, use_flash_attention=False)
+    zero_kernel_launches()
+    t0 = time.perf_counter()
+    plain_shared = fused_trainer.prepare_fused_shared(
+        cfg, manifests, plain_cfg, load_emotion2vec_checkpoint(ckpt, plain_cfg),
+        dataclasses.replace(fused_cfg, encoder=plain_cfg), None)
+    plain_s = time.perf_counter() - t0
+    if attention.flash_attention.launches:
+        raise AssertionError("the plain attention path launched the kernel")
+    errors = []
+    stores = {what: store_against_plain(shared[f"{what}_store"],
+                                        plain_shared[f"{what}_store"], what, errors)
+              for what in ("clean", "noisy")}
+    print(f"train_fused: startup stores, kernel vs plain attention path (plain startup "
+          f"{plain_s:.1f} s): " + json.dumps(stores), flush=True)
+    kp = kernel_against_plain(res, report["metrics"],
+                              lambda: make(True, plain_shared, "plain"), last, errors)
+    print(f"train_fused: kernel vs plain attention, each with its own stores, "
+          f"{COMPARE_STEPS} resident steps of epoch {last} from one seed: " + json.dumps(kp),
+          flush=True)
+    if errors:
+        raise AssertionError("fused trainer, kernel vs plain attention: " + "; ".join(errors))
+    del res, plain_shared, shared
+    torch.cuda.empty_cache()
+    return dict(launches=launches["flash_attention"], info=info, best_path=best_path)
+
+
+# phase 10, stage 1 and inference: the injection SNR of the reference's
+# grid that phase 9 trains at; whole extraction batches of the CLI's own
+# order held against the plain attention path (every bucket's batches, up
+# to this many); one ``cli preprocess`` condition of each real-noise mode
+# of the reference's grid over the whole corpus (root1 = one type for every
+# clip, root2 = a type drawn a clip), from a synthetic bank whose files
+# last as long as NOISEX-92's
+STAGE1_SNR_DB, PLAIN_BATCHES, NOISE_SECONDS = 10.0, 24, 235
+GRID_CONDITIONS = {"root1-babble-10db": ["--noise-types", "babble"],
+                   "root2-10db": ["--root2"]}
+# card vs CPU inference over the same store and weights: the head runs in
+# f32 on both (TF32 off), so the logits differ by summation order, ~1e-6;
+# a prediction may flip only where the top two logits are that close
+INFER_TIE_MARGIN = 1e-3
+
+
+def timed_cli(argv: list) -> float:
+    """Seconds of one ``cli.main(argv)`` call that must return 0, the card
+    synchronised at both ends."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rc = cli.main(argv)
+    torch.cuda.synchronize()
+    if rc != 0:
+        raise AssertionError(f"cli {' '.join(argv[:1])} returned {rc}")
+    return time.perf_counter() - t0
+
+
+@contextlib.contextmanager
+def stage1_probe(target, name: str):
+    """Wraps ``target.name`` for the block: the list it yields collects
+    (seconds, result) of each call, the card synchronised before each."""
+    calls, real = [], getattr(target, name)
+
+    def timed(*a, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = real(*a, **kw)
+        calls.append((time.perf_counter() - t0, out))
+        return out
+
+    setattr(target, name, timed)
+    try:
+        yield calls
+    finally:
+        setattr(target, name, real)
+
+
+def verified_snrs(what: str, verified: list) -> dict:
+    """The one verification of an injection pass (the gate's own sample of
+    20 clips), which must pass."""
+    (_sec, (ok, results)), = verified
+    snrs = [snr for _rel, snr in results]
+    if not ok:
+        raise AssertionError(f"{what}: verification FAILED: {results}")
+    return dict(mean_snr_db=float(np.mean(snrs)), min_snr_db=float(min(snrs)),
+                max_snr_db=float(max(snrs)), verified_clips=len(results))
+
+
+def run_inject(engine: str, raw: str, manifests: str, out: str) -> dict:
+    """``cli inject --snr_db 10 --verify`` with one engine; its verification
+    must pass."""
+    with stage1_probe(audio_cli, "verify_noise_injection") as verified:
+        sec = timed_cli(["inject", "--input_root", raw, "--output_root", out, "--snr_db",
+                         str(STAGE1_SNR_DB), "--manifest_path", manifests, "--engine", engine,
+                         "--verify"])
+    return dict(seconds=sec, **verified_snrs(f"{engine} injection", verified))
+
+
+def check_attention_launches(what: str, clips: int) -> int:
+    """The launches since the counts were zeroed: 12 per extraction batch of
+    16 (one a block), the other kernels none."""
+    launches = kernel_launches()
+    batches = -(-clips // EXTRACT_BATCH)
+    want = dict(flash_attention=12 * batches, fused_layernorm=0, fused_conv_ln_gelu=0,
+                copy_rows=0)
+    if launches != want:
+        raise AssertionError(f"{what}: kernel launches {launches}, expected {want} "
+                             f"(12 x {batches} batches)")
+    return launches["flash_attention"]
+
+
+def run_extract(manifests: str, ckpt: str, save_dir: str, clips: int) -> dict:
+    """``cli extract`` (bf16, attention through the kernel) on the card:
+    the CLI's seconds, the extraction pass's own seconds and clips/s, the
+    attention launches (12 per batch of 16, the other kernels none) and the
+    peak device memory (with what earlier phases still held before it)."""
+    zero_kernel_launches()
+    torch.cuda.reset_peak_memory_stats()
+    held_gb = torch.cuda.memory_allocated() / 1e9  # earlier phases' tensors, in the peak
+    with stage1_probe(FeatureExtractor, "extract_clips") as passes:
+        sec = timed_cli(["extract", "--data", manifests, "--checkpoint", ckpt, "--save-dir",
+                         save_dir])
+    launches = check_attention_launches("extract", clips)
+    ((pass_s, _feats),) = passes
+    with open(f"{save_dir}/train.lengths") as f:
+        frames = sum(int(x) for x in f)
+    return dict(cli_seconds=sec, pass_seconds=pass_s, clips_per_s=clips / pass_s,
+                batches=-(-clips // EXTRACT_BATCH), attention_launches=launches, frames=frames,
+                peak_device_gb=torch.cuda.max_memory_allocated() / 1e9, held_before_gb=held_gb)
+
+
+def extraction_against_plain(manifests: str, store_dir: str, ckpt: str, errors: list) -> dict:
+    """Whole batches of the CLI's extraction order (clips sorted by length,
+    16 a batch), up to PLAIN_BATCHES spread over every wav bucket, through
+    an extractor whose encoder takes the plain attention path: each clip's
+    features against the CLI's store, the norm of the difference over the
+    plain features' norm, within FEAT_REL_TOL_BF16 (phase 9's limit, for
+    its reason)."""
+    root, files = read_manifest(manifests)
+    lengths = np.array([frames for _rel, frames in files])
+    with open(f"{store_dir}/train.lengths") as f:
+        sizes = np.array([int(x) for x in f])
+    offsets = np.concatenate([[0], np.cumsum(sizes)[:-1]])
+    feats = np.load(f"{store_dir}/train.npy", mmap_mode="r")
+    plain_cfg = EncoderConfig(dtype="bfloat16", use_flash_attention=False)
+    plain = FeatureExtractor(plain_cfg, load_emotion2vec_checkpoint(ckpt, plain_cfg),
+                             batch_size=EXTRACT_BATCH)
+    order = np.argsort(lengths, kind="stable")
+    batches = [order[i:i + EXTRACT_BATCH] for i in range(0, len(order), EXTRACT_BATCH)]
+    by_bucket = collections.defaultdict(list)
+    for b in batches:
+        by_bucket[pad_to_bucket(int(lengths[b].max()), plain.buckets)].append(b)
+    per_bucket = -(-PLAIN_BATCHES // len(by_bucket))
+    chosen = [bs[int(k)] for bs in by_bucket.values()
+              for k in np.unique(np.linspace(0, len(bs) - 1, per_bucket).round())]
+    zero_kernel_launches()
+    rel = []
+    for idx in chosen:
+        clips = []
+        for i in idx:
+            wav, _sr = read_wav(os.path.join(root, files[i][0]))
+            clips.append(wav.astype(np.float32))
+        for i, ref in zip(idx, plain.extract_clips(clips)):
+            got = np.asarray(feats[offsets[i]:offsets[i] + sizes[i]])
+            if got.shape != ref.shape or not np.isfinite(got).all():
+                raise AssertionError(f"clip {i}: store {got.shape} vs plain {ref.shape}")
+            rel.append(float(np.linalg.norm(got - ref) / np.linalg.norm(ref)))
+    if attention.flash_attention.launches:
+        raise AssertionError("the plain attention path launched the kernel")
+    out = dict(batches=len(chosen), clips=len(rel),
+               batches_per_bucket={str(k): min(len(v), per_bucket) for k, v in
+                                   sorted(by_bucket.items())},
+               clip_rel_err_max=max(rel), clip_rel_err_median=float(np.median(rel)))
+    if not max(rel) <= FEAT_REL_TOL_BF16:
+        errors.append(f"{store_dir}: a clip's relative error {max(rel):.3e} > "
+                      f"{FEAT_REL_TOL_BF16}")
+    del plain
+    torch.cuda.empty_cache()
+    return out
+
+
+class PredictionProbe:
+    """Keeps the predictions and logits of every ``infer`` batch's clips (its
+    rows with a valid frame) on the host (``eval/inference.py``'s eval step,
+    wrapped for the probe's duration)."""
+
+    def __enter__(self) -> "PredictionProbe":
+        self.batches, self._make = [], inference.make_eval_step
+
+        def make(head):
+            step = self._make(head)
+
+            def recorded(params, feats, padding_mask):
+                preds, logits = step(params, feats, padding_mask)
+                rows = (~padding_mask.all(dim=-1)).cpu().numpy()
+                self.batches.append((preds.cpu().numpy()[rows],
+                                     logits.float().cpu().numpy()[rows]))
+                return preds, logits
+
+            return recorded
+
+        inference.make_eval_step = make
+        return self
+
+    def __exit__(self, *exc) -> None:
+        inference.make_eval_step = self._make
+
+
+def run_infer(best_pth: str, store_dir: str, out_dir: str, device: str) -> dict:
+    argv = ["infer", "--weights", best_pth, "--test-data", store_dir, "--split", "test",
+            "--fold", "0", "--output-dir", out_dir, "--device", device]
+    with PredictionProbe() as probe:
+        sec = timed_cli(argv)
+    (run,) = os.listdir(out_dir)
+    with open(f"{out_dir}/{run}/inference_results.json") as f:
+        res = json.load(f)
+    return dict(seconds=sec, metrics={k: res["metrics"][k] for k in
+                                      ("accuracy", "weighted_accuracy", "f1_weighted")},
+                num_samples=res["info"]["num_samples"], confidence=res["confidence_stats"],
+                preds=np.concatenate([p for p, _ in probe.batches]),
+                logits=np.concatenate([lg for _, lg in probe.batches]))
+
+
+def top_margin(logits: np.ndarray) -> np.ndarray:
+    top2 = np.sort(logits, axis=-1)[:, -2:]
+    return top2[:, 1] - top2[:, 0]
+
+
+def write_noise_bank(root: str, seed: int) -> str:
+    """The five NOISEX-92 files of the 5types directory, synthetic: seeded
+    Gaussian noise through a different short filter per type, 16 kHz,
+    NOISE_SECONDS long."""
+    rng = np.random.default_rng(seed)
+    os.makedirs(root)
+    n = NOISE_SECONDS * SAMPLE_RATE
+    for k, fname in enumerate(NOISE_FILE_MAPPING):
+        taps = np.hanning(2 * k + 3)  # low-pass, narrower as k grows
+        if k % 2:
+            taps *= (-1.0) ** np.arange(len(taps))  # high-pass
+        x = np.convolve(rng.standard_normal(n), taps / np.abs(taps).sum(), mode="same")
+        write_wav(f"{root}/{fname}", (0.3 * x / np.abs(x).max()).astype(np.float32),
+                  SAMPLE_RATE)
+    return root
+
+
+def run_noise_grid_conditions(root: str, corpus: dict, manifests: str, ckpt: str) -> dict:
+    """``cli preprocess`` (native engine, verification, extraction on the
+    card) over the whole corpus, one call and one condition a real-noise
+    mode: the call's seconds, its injection's and its extraction pass's,
+    the verification, the attention launches and a store of every clip."""
+    bank = write_noise_bank(f"{root}/5types", seed=1)
+    n, out, info = corpus["clips"], f"{root}/grid", {}
+    for name, flags in GRID_CONDITIONS.items():
+        zero_kernel_launches()
+        with stage1_probe(audio_cli, "verify_noise_injection") as verified, \
+                stage1_probe(audio_cli, "inject_files_native") as injected, \
+                stage1_probe(FeatureExtractor, "extract_clips") as passes:
+            sec = timed_cli(["preprocess", "--manifest-dir", manifests, "--clean-root",
+                             corpus["raw"], "--output-base", out, "--snrs",
+                             str(int(STAGE1_SNR_DB)), "--noise-root", bank, "--checkpoint",
+                             ckpt, "--engine", "native", *flags])
+        launches = check_attention_launches(f"preprocess {name}", n)
+        st = load_feature_store(f"{out}/features-{name}", dad_preset("iemocap").label_map)
+        if not (st.validate() and st.num == n and st.dim == 768
+                and np.isfinite(st.feats).all()):
+            raise AssertionError(f"preprocess {name}: the store is not {n} finite 768-d clips")
+        ((inject_s, _), (pass_s, _)) = injected[0], passes[0]
+        info[name] = dict(seconds=sec, inject_seconds=inject_s, pass_seconds=pass_s,
+                          clips=n, attention_launches=launches,
+                          **verified_snrs(f"preprocess {name}", verified))
+        print(f"stage1: preprocess {name}: verification PASSED " + json.dumps(info[name]),
+              flush=True)
+        del st
+        shutil.rmtree(out)
+    return info
+
+
+def run_preprocess(root: str, corpus: dict, manifests: str, ckpt: str, best_pth: str) -> dict:
+    """Phase 10 after phase 9: ``cli inject`` with both engines, ``cli
+    extract`` of the clean and the numpy-injected noisy trees, the stores
+    held against the plain attention path, ``cli infer`` on the card and on
+    the CPU, and ``cli preprocess`` of one real-noise condition a mode."""
+    n = corpus["clips"]
+    info = {}
+    for engine in ("native", "numpy"):
+        info[f"inject_{engine}"] = run_inject(engine, corpus["raw"], manifests,
+                                              f"{root}/root1-white-10db-{engine}")
+        print(f"stage1: inject --engine {engine}: verification PASSED "
+              + json.dumps(info[f"inject_{engine}"]), flush=True)
+    shutil.rmtree(f"{root}/root1-white-10db-native")
+    noisy_wavs = f"{root}/root1-white-10db-numpy"
+    noisy_manifests = write_noisy_manifest(manifests, noisy_wavs, f"{root}/manifests-noisy")
+    errors, launches = [], 0
+    for what, mdir in (("clean", manifests), ("noisy", noisy_manifests)):
+        ext = run_extract(mdir, ckpt, f"{root}/features-{what}", n)
+        launches += ext["attention_launches"]
+        ext["against_plain"] = extraction_against_plain(mdir, f"{root}/features-{what}", ckpt,
+                                                        errors)
+        info[f"extract_{what}"] = ext
+        print(f"stage1: extract {what}: " + json.dumps(ext), flush=True)
+    if errors:
+        raise AssertionError("extraction, kernel vs plain attention: " + "; ".join(errors))
+    shutil.rmtree(f"{root}/features-clean")
+
+    store = f"{root}/features-noisy"
+    gpu = run_infer(best_pth, store, f"{root}/inference-cuda", "cuda")
+    cpu = run_infer(best_pth, store, f"{root}/inference-cpu", "cpu")
+    if not gpu["metrics"]["weighted_accuracy"] > 25.0:
+        raise AssertionError(f"infer: noisy WA {gpu['metrics']['weighted_accuracy']} % is not "
+                             "above chance")
+    differ = np.nonzero(gpu["preds"] != cpu["preds"])[0]
+    margins = np.minimum(top_margin(gpu["logits"][differ]), top_margin(cpu["logits"][differ]))
+    agreement = dict(clips=int(len(gpu["preds"])), predictions_differ=int(len(differ)),
+                     margins_of_those=margins.tolist(),
+                     logit_max_abs_diff=float(np.abs(gpu["logits"] - cpu["logits"]).max()))
+    for key in ("preds", "logits"):
+        gpu.pop(key), cpu.pop(key)
+    info["infer_cuda"], info["infer_cpu"], info["infer_card_vs_cpu"] = gpu, cpu, agreement
+    print("stage1: infer --split test --fold 0 on the card " + json.dumps(gpu)
+          + "; --device cpu " + json.dumps(cpu) + "; card vs CPU " + json.dumps(agreement),
+          flush=True)
+    if len(differ) and margins.max() > INFER_TIE_MARGIN:
+        raise AssertionError(f"infer: {len(differ)} predictions differ between the card and "
+                             f"the CPU, with top-2 logit margins up to {margins.max():.3e}")
+    shutil.rmtree(store)
+
+    info["preprocess"] = run_noise_grid_conditions(root, corpus, manifests, ckpt)
+    grid_launches = sum(c["attention_launches"] for c in info["preprocess"].values())
+    return dict(launches=launches + grid_launches, info=info)
+
+
+def run_stage1_and_fused(only_fused: bool = False) -> tuple:
+    """Phases 9 and 10 in one directory: the raw IEMOCAP-layout corpus and
+    ``cli manifest`` (phase 10's first steps), the fused trainer on that
+    manifest (phase 9), then the rest of phase 10 unless ``only_fused``."""
+    with tempfile.TemporaryDirectory(prefix="dad_stage1_") as root, contextlib.chdir(root):
+        t0 = time.perf_counter()
+        corpus = write_iemocap_corpus(root, seed=0)
+        write_s = time.perf_counter() - t0
         enc_cfg = EncoderConfig(dtype="bfloat16", use_flash_attention=True)
         ckpt = f"{root}/emotion2vec_base.pt"
         torch.save({"model": random_fairseq_state_dict(enc_cfg, seed=0)}, ckpt)
-        print(f"train_fused: corpus {json.dumps(corpus)}, written in "
-              f"{time.perf_counter() - t0:.1f} s", flush=True)
-        argv = ["dad", "--corpus", "iemocap", "--from-wav", manifests, "--checkpoint", ckpt,
-                "--fold", "0", "--epochs", str(FUSED_EPOCHS), "--warmup-epochs", "1",
-                "--snr", "10", "--name", "fused"]
-
-        zero_kernel_launches()
-        torch.cuda.reset_peak_memory_stats()
-        held_gb = torch.cuda.memory_allocated() / 1e9  # earlier phases' tensors, in the peak
-        probe = TrainerProbe(fused_trainer, FusedCrossDomainTrainer,
-                             {"make_fused_extract_train_step": batch_bytes,
-                              "make_resident_fused_step": index_bytes})
-        with probe, StartupProbe() as startup:
-            t0 = time.perf_counter()
-            rc = cli.main(argv)
-            run_s = time.perf_counter() - t0
-        launches = kernel_launches()
-        peak_gb = torch.cuda.max_memory_allocated() / 1e9
-        if rc != 0:
-            raise AssertionError(f"cli dad --from-wav returned {rc}")
-        trainer = probe.trainers[-1]
-        if trainer._resident is None:
-            raise AssertionError("--resident auto did not engage the resident corpus")
-        resident_mb = sum(c.flat.nbytes for c in trainer._resident) / 1e6
-        blocks = trainer.fused_cfg.encoder.prenet_depth + trainer.fused_cfg.encoder.depth
-        n = trainer.wav_store.num
-        extract_batches = -(-n // EXTRACT_BATCH)
-        steps = len(probe.events)
-        per_epoch = min(len(trainer.clean_train), len(trainer.noisy_wav_train))
-        if steps != FUSED_EPOCHS * per_epoch:
-            raise AssertionError(f"{steps} training steps, expected {FUSED_EPOCHS} x {per_epoch}")
-        want = dict(flash_attention=blocks * (2 * extract_batches + steps), fused_layernorm=0,
-                    fused_conv_ln_gelu=0, copy_rows=0)
-        if launches != want:
-            raise AssertionError(f"kernel launches {launches}, expected {want} ({blocks} x (2 x "
-                                 f"{extract_batches} extraction batches + {steps} steps))")
-        checks = check_trainer_run(trainer, FUSED_EPOCHS)
-        history = read_history(trainer)
-        if not history["supervised_ce_loss"][2] < history["supervised_ce_loss"][0]:
-            raise AssertionError(f"clean CE did not fall: {history['supervised_ce_loss']}")
-        last = FUSED_EPOCHS - 1
-        rec = next(e for e in probe.epochs if e["epoch"] == last)
-        ms = probe.step_ms(last)
-        clips = 2 * min(per_epoch * trainer.cfg.batch_size, trainer.clean_train.store.num)
-        buckets = collections.Counter(
-            t for e in range(FUSED_EPOCHS)
-            for _c, (_i, t) in resident_mod.paired_index_epoch(trainer.clean_train,
-                                                               trainer.noisy_wav_train, e))
-        streamed = streamed_mb_per_step(trainer.clean_train, trainer.noisy_wav_train, last,
-                                        trainer.cfg.input_dim)
-        info = dict(
-            startup_s=startup.summary(), run_s=run_s, resident_mb=resident_mb,
-            peak_device_gb=peak_gb, held_before_gb=held_gb, steps_per_epoch=per_epoch,
-            ms_per_step_median=float(np.median(ms)), ms_per_step_range=[min(ms), max(ms)],
-            epoch_s=[e["seconds"] for e in probe.epochs], clips_per_s=clips / rec["seconds"],
-            h2d_bytes_per_step_resident=probe.h2d_mb_per_step(last)["float32"] * 1e6,
-            h2d_mb_per_step_streamed=streamed,
-            wav_buckets_of_steps={str(k): v for k, v in sorted(buckets.items())},
-            kernel_launches=launches)
-        print("train_fused: run " + json.dumps(checks), flush=True)
-        print("train_fused: times " + json.dumps(info), flush=True)
-        del probe
-
-        # one resident step at the most common wav bucket, profiled
-        t_wav = buckets.most_common(1)[0][0]
-        (cidx, t_c), (widx, _t) = next(
-            p for p in resident_mod.paired_index_epoch(trainer.clean_train,
-                                                       trainer.noisy_wav_train, last)
-            if p[1][1] == t_wav)
-        step = fused_trainer.make_resident_fused_step(trainer.encoder, trainer.head, trainer.tx,
-                                                      trainer.fused_cfg)
-        scalars = StepScalars.for_epoch(trainer.cfg, last)
-        clean_c, wav_c = trainer._resident
-        args = (trainer.state, clean_c, wav_c, torch.from_numpy(cidx).cuda(),
-                torch.from_numpy(widx).cuda(), scalars, trainer.anchors, trainer.generator)
-        step(*args, t_clean=t_c, t_wav=t_wav, frame_cap=trainer.clean_train.max_frames)
-        profile = profile_step(lambda: step(*args, t_clean=t_c, t_wav=t_wav,
-                                            frame_cap=trainer.clean_train.max_frames))
-        attn = profile["by_group_ms"].get("attention kernel", 0.0)
-        profile.update(wav_bucket=t_wav, clean_frames=t_c,
-                       attention_share=attn / profile["device_ms"])
-        print("profile: fused train step " + json.dumps(profile), flush=True)
-
-        # resident against streamed, then kernel against plain attention:
-        # fresh trainers, DACP opened; the kernel's from this run's startup
-        shared = dict(wav_store=trainer.wav_store, extractor=trainer.extractor,
-                      clean_store=trainer.clean_store, noisy_store=trainer.noisy_store,
-                      noise_clips=None)
-        cfg = dataclasses.replace(trainer.cfg, results_base_dir="compare",
-                                  dacp=dataclasses.replace(trainer.cfg.dacp, **DACP_OPEN))
-        fused_cfg = trainer.fused_cfg
-        del trainer, step, args, clean_c, wav_c
-        torch.cuda.empty_cache()
-
-        def make(resident, startup=shared, name="kernel"):
-            enc = startup["extractor"].cfg
-            return record_tracking(FusedCrossDomainTrainer(
-                cfg, manifests, enc, None, fused_cfg=dataclasses.replace(fused_cfg, encoder=enc),
-                experiment_name=f"{name}_{resident}", shared=startup, resident=resident))
-
-        report, res = resident_against_streamed(make, epoch=last)
-        print(f"train_fused: resident vs --resident off, {COMPARE_STEPS} steps of epoch {last} "
-              "from one seed: " + json.dumps(report), flush=True)
-
-        # the plain attention path's own startup: both extraction passes
-        # through it, so that the stores the kernel extracted are held
-        # against it too
-        plain_cfg = dataclasses.replace(enc_cfg, use_flash_attention=False)
-        zero_kernel_launches()
-        t0 = time.perf_counter()
-        plain_shared = fused_trainer.prepare_fused_shared(
-            cfg, manifests, plain_cfg, load_emotion2vec_checkpoint(ckpt, plain_cfg),
-            dataclasses.replace(fused_cfg, encoder=plain_cfg), None)
-        plain_s = time.perf_counter() - t0
-        if attention.flash_attention.launches:
-            raise AssertionError("the plain attention path launched the kernel")
-        errors = []
-        stores = {what: store_against_plain(shared[f"{what}_store"],
-                                            plain_shared[f"{what}_store"], what, errors)
-                  for what in ("clean", "noisy")}
-        print(f"train_fused: startup stores, kernel vs plain attention path (plain startup "
-              f"{plain_s:.1f} s): " + json.dumps(stores), flush=True)
-        kp = kernel_against_plain(res, report["metrics"],
-                                  lambda: make(True, plain_shared, "plain"), last, errors)
-        print(f"train_fused: kernel vs plain attention, each with its own stores, "
-              f"{COMPARE_STEPS} resident steps of epoch {last} from one seed: " + json.dumps(kp),
-              flush=True)
-        if errors:
-            raise AssertionError("fused trainer, kernel vs plain attention: " + "; ".join(errors))
-        del res, plain_shared, shared
-        torch.cuda.empty_cache()
-    return dict(launches=launches["flash_attention"], info=info)
+        manifests = f"{root}/manifests"
+        manifest_s = timed_cli(["manifest", "--corpus", "iemocap", "--root", corpus["raw"],
+                                "--eval_dir", corpus["eval_dir"], "--dest", manifests])
+        _root, files = read_manifest(manifests)
+        if len(files) != corpus["clips"]:
+            raise AssertionError(f"manifest: {len(files)} clips, expected {corpus['clips']}")
+        print(f"stage1: corpus {json.dumps(corpus)}, written in {write_s:.1f} s; cli manifest "
+              f"{manifest_s:.2f} s", flush=True)
+        fused = run_fused_trainer(root, manifests, ckpt)
+        pre = None if only_fused else run_preprocess(root, corpus, manifests, ckpt,
+                                                     fused["best_path"])
+    return fused, pre
 
 
 T_START = time.perf_counter()
@@ -1988,11 +2359,13 @@ T_START = time.perf_counter()
 
 def parse_args(argv=None) -> argparse.Namespace:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    p.add_argument("--only", choices=("attention", "conv", "trainer", "fused"),
+    p.add_argument("--only", choices=("attention", "conv", "trainer", "fused", "preprocess"),
                    help="attention: build and run phases 1-3 only; conv: build conv.cu and "
                         "run phases 1, 2 and 6, then the conv grid comparison (to time two "
                         "checkouts in one call); trainer: build nothing, run phase 8 only; "
-                        "fused: build attention.cu and run phases 1, 2 and 9")
+                        "fused: build attention.cu and run phases 1, 2 and 9 (with phase 10's "
+                        "corpus and manifest); preprocess: build attention.cu and run phases "
+                        "1, 2, 9 and 10 (phase 10 reads phase 9's checkpoint)")
     return p.parse_args(argv)
 
 
@@ -2008,8 +2381,8 @@ def main(argv=None) -> int:
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
 
-    sources = {None: SOURCES, "trainer": (), "fused": ("attention",)}.get(args.only,
-                                                                         (args.only,))
+    sources = {None: SOURCES, "trainer": (), "fused": ("attention",),
+               "preprocess": ("attention",)}.get(args.only, (args.only,))
     t0 = time.perf_counter()
     if sources:
         with concurrent.futures.ThreadPoolExecutor(len(sources)) as pool:
@@ -2023,8 +2396,8 @@ def main(argv=None) -> int:
 
     if args.only == "trainer":
         run_feature_trainer()
-    elif args.only == "fused":
-        run_fused_trainer()
+    elif args.only in ("fused", "preprocess"):
+        run_stage1_and_fused(only_fused=args.only == "fused")
     elif args.only == "conv":
         # the serving slice's encoder weights and the training slice's noisy batch
         enc_cfg = EncoderConfig(dtype="bfloat16", use_flash_attention=True)
@@ -2050,7 +2423,7 @@ def main(argv=None) -> int:
     del clean, noisy
     torch.cuda.empty_cache()
     run_feature_trainer()
-    fused = run_fused_trainer()
+    fused, pre = run_stage1_and_fused()
 
     def entry(name, source, replaces, launches, r):
         return dict(name=name, route="cuda", source=f"{PORT_PKG}/csrc/{source}",
@@ -2068,7 +2441,8 @@ def main(argv=None) -> int:
     front["bound_by"] = "operations" if ops_bound > front["bound_ms"] / 2 else "bytes"
     kernels = [
         entry("flash_attention", "attention.cu", f"{JAX_PKG}/ops/attention.py:28",
-              slice_info["launches"] + train["launches"] + fused["launches"], step_attn),
+              slice_info["launches"] + train["launches"] + fused["launches"] + pre["launches"],
+              step_attn),
         entry("fused_layernorm", "fused_norm.cu", f"{JAX_PKG}/ops/fused_norm.py:44",
               norm["launches"]["fused_layernorm"], norm["rows"][("ln_gelu", torch.bfloat16)]),
         entry("fused_conv_ln_gelu", "conv.cu", f"{JAX_PKG}/ops/conv.py:86",

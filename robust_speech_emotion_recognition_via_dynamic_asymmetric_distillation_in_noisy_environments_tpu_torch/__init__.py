@@ -2,10 +2,12 @@
 
 A second package beside the JAX reference, module for module: each file
 here has its counterpart at the same relative path in the JAX package.
-It imports ``torch`` and ``numpy`` only. Entry points (``FeatureExtractor``,
+It imports ``torch`` and ``numpy`` only (and scipy's resampler in
+``audio/format.py``). Entry points (``FeatureExtractor``,
 ``EmotionPredictor``, ``PredictionServer``, ``cli serve``) run on the GPU
 unless the caller passes ``device="cpu"``; so do ``CrossDomainTrainer``,
-``FusedCrossDomainTrainer`` and ``cli dad``.
+``FusedCrossDomainTrainer``, ``CrossDomainInference``, ``extract_manifest``
+and the CLI's subcommands.
 
 Ported so far:
 - the wav -> emotion serving path (configs, encoder, head, extraction,
@@ -27,5 +29,15 @@ Ported so far:
   (``audio/noise.py``), manifests, the wav store and its batches
   (``data/manifests.py``, ``data/wavstore.py``);
 - the device-resident training corpus of both trainers
-  (``parallel/resident.py``; ``--resident auto``, the default).
+  (``parallel/resident.py``; ``--resident auto``, the default);
+- stage 1 and inference: the corpus manifests (``data/manifests.py``),
+  the 16 kHz mono gate (``audio/format.py``), offline noise injection with
+  its verification (``audio/cli.py``, ``audio/verify.py``; the native C++
+  engine through ``audio/native_inject.py``), offline extraction
+  (``models/extract.py::extract_manifest``, attention through the
+  kernel), the noise grid (``exp/preprocess.py``) and cross-corpus
+  inference (``eval/inference.py``), with the native host library
+  (``data/native.py``: built from ``native/*.cc`` on first use for the
+  native injection engine; its batcher, ``NativeStore``, is bound and
+  tested, while the trainers and ``infer`` assemble batches in numpy).
 """

@@ -1,36 +1,161 @@
 """Command line of the PyTorch package.
 
-    python -m <pkg> serve --weights dad_best.pth [--checkpoint emotion2vec_base.pt]
-    python -m <pkg> dad --corpus iemocap --clean FEATS --noisy root1-white-10db [--weights pm.ckpt]
+    python -m <pkg> manifest --corpus iemocap --root IEMOCAP --eval_dir EVAL --dest MANIFESTS
+    python -m <pkg> inject --input_root IEMOCAP --output_root NOISY --manifest_path M --verify
+    python -m <pkg> extract --data MANIFESTS --checkpoint emotion2vec_base.pt --save-dir FEATS
+    python -m <pkg> dad --corpus iemocap --clean FEATS --noisy NOISY_FEATS [--weights pm.ckpt]
     python -m <pkg> dad --corpus iemocap --from-wav MANIFESTS --checkpoint emotion2vec_base.pt
+    python -m <pkg> infer --weights dad_best.pth --test-data NOISY_FEATS [--split all]
+    python -m <pkg> serve --weights dad_best.pth [--checkpoint emotion2vec_base.pt]
 
-Ported so far, each with the JAX package's flags plus ``--device`` (default
-``cuda``; ``cpu`` to run on the CPU):
-- ``serve``: its encoder runs attention through the hand-written CUDA
-  kernel (``use_flash_attention=True``);
+Ported so far, each with the JAX package's flags plus ``--device`` where it
+touches a tensor (default ``cuda``; ``cpu`` to run on the CPU):
+- stage 1, preprocessing: ``manifest`` (IEMOCAP, CASIA, EMODB),
+  ``fix-format`` (16 kHz mono), ``inject`` (numpy or native C++ engine,
+  ``--verify``), ``extract`` (the feature store; ``--dp``/``--tp`` exit
+  with status 2) and ``preprocess`` (a noise grid of inject + verify +
+  extract, the encoder loaded once);
+- ``infer``: a DAD checkpoint over a feature store's fold test split or
+  all of it;
+- ``serve``;
 - ``dad`` on feature stores (``--clean``/``--noisy``): the feature-level
   DAD trainer;
-- ``dad --from-wav``: the fused wav->train trainer; its frozen encoder runs
-  attention through the kernel unless ``--encoder-json`` sets
-  ``use_flash_attention``.
-Both ``dad`` modes hold the fold's training corpus on the device when it
-fits (``--resident auto``, the default; ``on`` / ``off``). ``--fold all``
-logs a failed fold and goes on, then exits with status 1. ``--dp``/``--tp``
-(multi-GPU) exit with status 2, naming the ROADMAP.md item that brings them.
-The JAX package's other subcommands are recognised and exit with status 2,
-saying they are not ported yet.
+- ``dad --from-wav``: the fused wav->train trainer.
+The encoders of ``extract``, ``preprocess``, ``serve`` and ``dad
+--from-wav`` run attention through the hand-written CUDA kernel unless
+``--encoder-json`` sets ``use_flash_attention``. Both ``dad`` modes hold the
+fold's training corpus on the device when it fits (``--resident auto``, the
+default; ``on`` / ``off``). ``--fold all`` logs a failed fold and goes on,
+then exits with status 1. ``--dp``/``--tp`` (multi-GPU) exit with status 2,
+naming the ROADMAP.md item that brings them. The JAX package's other
+subcommands are recognised and exit with status 2, saying they are not
+ported yet.
 """
 
 from __future__ import annotations
 
 import argparse
+import os
 import sys
 
 NOT_PORTED = (
-    "manifest", "inject", "extract", "pretrain", "d2v-pretrain", "d2v-pack",
-    "infer", "ablation", "sensitivity", "fix-format", "preprocess",
-    "analyze",
+    "pretrain", "d2v-pretrain", "d2v-pack", "ablation", "sensitivity", "analyze",
 )
+
+
+def _cmd_manifest(args):
+    from .data import manifests
+
+    if args.corpus == "iemocap":
+        if args.eval_dir:
+            labels = manifests.parse_iemocap_emo_evaluation(args.eval_dir)
+            manifests.build_iemocap_manifest(args.root, args.dest, labels=labels)
+        else:
+            manifests.build_iemocap_manifest(args.root, args.dest, label_path=args.label_path)
+    elif args.corpus == "casia":
+        manifests.build_casia_manifest(args.root, args.dest)
+    else:
+        manifests.build_emodb_manifest(args.root, args.dest)
+    return 0
+
+
+def _cmd_fix_format(args):
+    from .audio.format import check_audio_format, fix_audio_format
+
+    n_checked = n_fixed = 0
+    for dirpath, _dirs, files in os.walk(args.root):
+        for fname in sorted(files):
+            if not fname.lower().endswith(".wav"):
+                continue
+            path = os.path.join(dirpath, fname)
+            n_checked += 1
+            ok, sr, ch = check_audio_format(path, target_sr=args.target_sr)
+            if ok:
+                continue
+            if args.check_only:
+                print(f"NONCONFORMING {path}: {sr} Hz, {ch} ch")
+            else:
+                fix_audio_format(path, path, target_sr=args.target_sr)
+            n_fixed += 1
+    verb = "flagged" if args.check_only else "fixed"
+    print(f"checked {n_checked} wavs; {verb} {n_fixed}")
+    return 0
+
+
+def _cmd_preprocess(args):
+    from .exp.preprocess import run_noise_grid
+
+    from .configs import encoder_config
+
+    run_noise_grid(
+        manifest_dir=args.manifest_dir,
+        clean_root=args.clean_root,
+        output_base=args.output_base,
+        snrs=[float(x) for x in args.snrs.split(",")],
+        noise_types=args.noise_types.split(",") if args.noise_types else None,
+        noise_root=args.noise_root,
+        root2=args.root2,
+        checkpoint=args.checkpoint,
+        features_base=args.features_base,
+        verify=not args.no_verify,
+        engine=args.engine,
+        encoder_cfg=encoder_config(args.encoder_json),
+        device=args.device,
+    )
+    return 0
+
+
+def _add_stage1_parsers(sub) -> None:
+    """manifest, inject, extract, infer, fix-format and preprocess."""
+    from .audio.cli import add_inject_args, inject
+    from .eval import inference
+    from .models import extract
+
+    p = sub.add_parser("manifest", help="manifest + label sidecars of a raw corpus")
+    p.add_argument("--corpus", choices=["iemocap", "casia", "emodb"], required=True)
+    p.add_argument("--root", required=True)
+    p.add_argument("--dest", required=True)
+    p.add_argument("--label_path", default=None)
+    p.add_argument("--eval_dir", default=None, help="IEMOCAP EmoEvaluation dir")
+    p.set_defaults(func=_cmd_manifest)
+
+    p = sub.add_parser("inject", help="offline noise injection over a manifest's wav tree")
+    add_inject_args(p)
+    p.set_defaults(func=inject)
+
+    p = sub.add_parser("extract", help="emotion2vec feature store of a manifest")
+    extract.add_extract_args(p)
+    p.set_defaults(func=extract.run)
+
+    p = sub.add_parser("infer", help="a DAD checkpoint over a feature store")
+    inference.add_infer_args(p)
+    p.set_defaults(func=inference.run)
+
+    p = sub.add_parser("fix-format", help="16 kHz-mono gate (check_and_fix_audio_format.py)")
+    p.add_argument("--root", required=True, help="wav tree to walk")
+    p.add_argument("--target-sr", type=int, default=16000)
+    p.add_argument("--check-only", action="store_true")
+    p.set_defaults(func=_cmd_fix_format)
+
+    p = sub.add_parser("preprocess", help="noise-grid injection (+ extraction)")
+    p.add_argument("--manifest-dir", required=True)
+    p.add_argument("--clean-root", required=True)
+    p.add_argument("--output-base", required=True)
+    p.add_argument("--snrs", default="0,10,15,20")
+    p.add_argument("--noise-types", default=None,
+                   help="comma list (babble,f16,...); omit for white noise")
+    p.add_argument("--noise-root", default=None, help="NOISEX 5types dir")
+    p.add_argument("--root2", action="store_true", help="random type per clip")
+    p.add_argument("--checkpoint", default=None, help="extract features too")
+    p.add_argument("--encoder-json", default=None,
+                   help="EncoderConfig overrides for extraction (inline JSON or a file)")
+    p.add_argument("--features-base", default=None)
+    p.add_argument("--no-verify", action="store_true")
+    p.add_argument("--engine", choices=["numpy", "native"], default="numpy",
+                   help="native = threaded C++ injector (SNR-exact)")
+    p.add_argument("--device", default="cuda",
+                   help="extraction device: cuda (default) or cpu")
+    p.set_defaults(func=_cmd_preprocess)
 
 
 def _cmd_serve(args):
@@ -42,11 +167,11 @@ def _cmd_serve(args):
     ssrl = torch_state_dict_to_ssrl(load_torch_file(args.weights))
     extractor = None
     if args.checkpoint:
-        from .configs import EncoderConfig
+        from .configs import encoder_config
         from .models.convert import load_emotion2vec_checkpoint
         from .models.extract import FeatureExtractor
 
-        enc_cfg = EncoderConfig(dtype=args.encoder_dtype, use_flash_attention=True)
+        enc_cfg = encoder_config(dtype=args.encoder_dtype)
         state = load_emotion2vec_checkpoint(args.checkpoint, enc_cfg)
         extractor = FeatureExtractor(
             enc_cfg, state, batch_size=args.max_batch, device=args.device
@@ -69,21 +194,6 @@ def _cmd_serve(args):
 def _refuse(what: str) -> int:
     print(f"dad_torch: error: {what}", file=sys.stderr)
     return 2
-
-
-def _load_encoder_json(arg: str) -> dict:
-    """--encoder-json takes an inline JSON object or a path to a JSON file;
-    conv_feature_layers lists become tuples, as the frozen config needs."""
-    import json
-
-    if arg.lstrip().startswith("{"):
-        kw = json.loads(arg)
-    else:
-        with open(arg, encoding="utf-8") as f:
-            kw = json.load(f)
-    if "conv_feature_layers" in kw:
-        kw["conv_feature_layers"] = tuple(tuple(x) for x in kw["conv_feature_layers"])
-    return kw
 
 
 def _sweep_cfg_kw(args) -> dict:
@@ -142,16 +252,13 @@ def _build_fused_from_args(args, cfg):
     from the injection flags. The encoder runs attention through the
     kernel unless ``--encoder-json`` sets ``use_flash_attention``."""
     from .audio.noise import NOISE_TYPES
-    from .configs import EncoderConfig
+    from .configs import encoder_config
     from .models.convert import load_emotion2vec_checkpoint
     from .parallel.fused import FusedConfig
 
     if not args.checkpoint:
         raise ValueError("--from-wav needs --checkpoint (emotion2vec weights)")
-    enc_kw = {"dtype": args.encoder_dtype, "use_flash_attention": True}
-    if args.encoder_json:
-        enc_kw.update(_load_encoder_json(args.encoder_json))
-    enc_cfg = EncoderConfig(**enc_kw)
+    enc_cfg = encoder_config(args.encoder_json, dtype=args.encoder_dtype)
     enc_params = load_emotion2vec_checkpoint(args.checkpoint, enc_cfg)
 
     snr_choices = (tuple(float(s) for s in args.snr_choices.split(","))
@@ -290,6 +397,7 @@ def build_parser() -> argparse.ArgumentParser:
                    help="cuda (default) or cpu; without a GPU, cuda fails")
     p.set_defaults(func=_cmd_serve)
     _add_dad_parser(sub)
+    _add_stage1_parsers(sub)
 
     for name in NOT_PORTED:
         sub.add_parser(name, add_help=False, help="not ported yet")

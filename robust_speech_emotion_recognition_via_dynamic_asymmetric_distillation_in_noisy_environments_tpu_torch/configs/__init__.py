@@ -8,6 +8,8 @@ from .base import (
     AugmentConfig,
     PretrainConfig,
     apply_overrides,
+    encoder_config,
+    load_encoder_json,
 )
 from .presets import (
     CORPUS_PRESETS,
@@ -25,6 +27,8 @@ __all__ = [
     "AugmentConfig",
     "PretrainConfig",
     "apply_overrides",
+    "encoder_config",
+    "load_encoder_json",
     "CORPUS_PRESETS",
     "dad_preset",
     "pretrain_preset",

@@ -383,6 +383,32 @@ def apply_overrides(cfg: Any, overrides: Mapping[str, Any]) -> Any:
     return out
 
 
+def load_encoder_json(arg: str) -> Dict[str, Any]:
+    """``--encoder-json``: an inline JSON object or the path of a JSON file;
+    ``conv_feature_layers`` lists become tuples, as the frozen config needs."""
+    import json
+
+    if arg.lstrip().startswith("{"):
+        kw = json.loads(arg)
+    else:
+        with open(arg, encoding="utf-8") as f:
+            kw = json.load(f)
+    if "conv_feature_layers" in kw:
+        kw["conv_feature_layers"] = tuple(tuple(x) for x in kw["conv_feature_layers"])
+    return kw
+
+
+def encoder_config(encoder_json: Optional[str] = None, **kw: Any) -> EncoderConfig:
+    """The config of a frozen encoder (``extract``, ``preprocess``, ``serve``,
+    ``dad --from-wav``): attention through the kernel unless
+    ``encoder_json`` sets ``use_flash_attention``; ``kw`` (e.g. ``dtype``)
+    under the JSON's overrides."""
+    fields: Dict[str, Any] = {"use_flash_attention": True, **kw}
+    if encoder_json:
+        fields.update(load_encoder_json(encoder_json))
+    return EncoderConfig(**fields)
+
+
 # Maps reference UPPER_SNAKE knobs to dotted dataclass paths.
 _REFERENCE_KNOBS = {
     "USE_DACP": "dacp.use_dacp",

@@ -10,6 +10,7 @@ from .folds import (
 from .batching import Batch, PaddedBatchIterator, pad_to_bucket
 from .prefetch import prefetch
 from .manifests import ManifestEntry, read_manifest, wav_frames, write_manifest
+from .native import NativeStore, native_available
 from .wavstore import WAV_BUCKETS, PaddedWavIterator, WavBatch, WavStore, load_wav_store
 
 __all__ = [
@@ -30,6 +31,8 @@ __all__ = [
     "read_manifest",
     "wav_frames",
     "write_manifest",
+    "NativeStore",
+    "native_available",
     "WAV_BUCKETS",
     "PaddedWavIterator",
     "WavBatch",

@@ -11,6 +11,7 @@ from .reports import (
     final_test_report,
     save_confusion_matrices,
 )
+from .inference import CrossDomainInference, detect_dataset_type
 from .serving import FRAME_BUCKETS, EmotionPredictor, PredictionServer
 
 __all__ = [
@@ -23,6 +24,8 @@ __all__ = [
     "best_detailed_results",
     "final_test_report",
     "save_confusion_matrices",
+    "CrossDomainInference",
+    "detect_dataset_type",
     "FRAME_BUCKETS",
     "EmotionPredictor",
     "PredictionServer",

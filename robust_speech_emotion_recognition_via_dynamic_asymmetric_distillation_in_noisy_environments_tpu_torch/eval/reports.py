@@ -3,9 +3,9 @@
 The ablation harness scrapes ``BEST_detailed_results_epoch_*.json``, so
 field names, nesting and the percent-string formatting are the
 reference's (train.py:608-633 and 729-759) and the JAX package's, byte for
-byte but for the final report's timestamp. The confusion-matrix PNGs need
-matplotlib; without it they are skipped with a warning, as in the JAX
-package.
+byte but for the final report's timestamp. The PNGs (confusion matrices,
+inference's per-class bars) need matplotlib; without it they are skipped
+with a warning, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -147,6 +147,34 @@ def _heatmap(fig, ax, res: Dict, class_names: Sequence[str], title: str, cmap: s
         f"W-Acc: {res['weighted_accuracy']:.2f}%"
     )
     fig.colorbar(im, ax=ax)
+
+
+def save_per_class_bars(
+    out_dir: str,
+    results: Dict,
+    class_names: Sequence[str],
+    name: str = "per_class_metrics.png",
+) -> Optional[str]:
+    """Per-class precision/recall/F1 bars (reference inference.py:476-524)."""
+    plt = _pyplot()
+    if plt is None:
+        return None
+    x = np.arange(len(class_names))
+    w = 0.25
+    fig, ax = plt.subplots(figsize=(9, 5))
+    ax.bar(x - w, results["precision_per_class"], w, label="precision")
+    ax.bar(x, results["recall_per_class"], w, label="recall")
+    ax.bar(x + w, results["f1_per_class"], w, label="f1")
+    ax.set_xticks(x, class_names)
+    ax.set_ylim(0, 1.05)
+    ax.legend()
+    ax.grid(True, axis="y", alpha=0.3)
+    ax.set_title("Per-class metrics")
+    os.makedirs(out_dir, exist_ok=True)
+    path = os.path.join(out_dir, name)
+    fig.savefig(path, dpi=150, bbox_inches="tight")
+    plt.close(fig)
+    return path
 
 
 def save_confusion_matrices(

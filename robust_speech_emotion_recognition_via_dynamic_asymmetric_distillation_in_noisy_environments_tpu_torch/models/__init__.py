@@ -1,5 +1,5 @@
 from .emotion2vec import Emotion2vecEncoder, extract_features, normalize_wav
-from .extract import FeatureExtractor
+from .extract import FeatureExtractor, extract_manifest
 from .heads import (
     DADClassifier,
     DADEncoder,
@@ -16,6 +16,7 @@ __all__ = [
     "extract_features",
     "normalize_wav",
     "FeatureExtractor",
+    "extract_manifest",
     "DADClassifier",
     "DADEncoder",
     "DADHead",

@@ -1,19 +1,28 @@
-"""Batched feature extraction: length-bucketed padded batches through the
-encoder. The padding-exact batched forward (``layers.PositionalConv``)
-gives the same features as per-clip extraction. Ported so far:
-``FeatureExtractor.extract_clips`` (the serving path and the fused
-trainer's startup); ``extract_manifest`` comes with ``cli extract``.
+"""Offline feature extraction: wav manifest -> reference-format feature
+store (the counterpart of the reference's emotion2vec_speech_features.py).
+
+Clips are length-bucketed into padded batches through the encoder; the
+padding-exact batched forward (``layers.PositionalConv``) gives the same
+features as per-clip extraction. ``FeatureExtractor.extract_clips`` also
+serves the serving path and the fused trainer's startup. Output of
+``extract_manifest``: ``<save_dir>/<split>.npy`` (float32 rows) +
+``.lengths``, with the label sidecars copied through, in the JAX package's
+layout byte for byte (the reference's NpyAppendArray layout).
 """
 
 from __future__ import annotations
 
+import argparse
+import os
+import sys
 from typing import List, Mapping, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
 
-from ..configs import EncoderConfig
-from ..utils import get_logger, resolve_device
+from ..configs import EncoderConfig, encoder_config
+from ..data.manifests import read_manifest
+from ..utils import MESH_NOT_PORTED, get_logger, resolve_device
 from .emotion2vec import Emotion2vecEncoder, normalize_wav
 from .layers import conv_out_lengths
 
@@ -39,9 +48,13 @@ class FeatureExtractor:
         batch_size: int = 16,
         buckets: Sequence[int] = (16000, 32000, 64000, 128000, 256000, 480000),
         device: Union[str, torch.device] = "cuda",
+        mesh=None,
     ):
         """``state_dict``: the port's encoder layout, from
-        ``convert.fairseq_to_torch_encoder`` or ``flax_encoder_to_torch``."""
+        ``convert.fairseq_to_torch_encoder`` or ``flax_encoder_to_torch``.
+        ``mesh`` (multi-GPU extraction) is not ported and raises."""
+        if mesh is not None:
+            raise NotImplementedError(MESH_NOT_PORTED)
         self.device = resolve_device(device)
         self.cfg = cfg
         self.batch_size = batch_size
@@ -85,3 +98,98 @@ class FeatureExtractor:
             for row, i in enumerate(idx):
                 results[int(i)] = feats[row, : out_lens[row]]
         return results  # type: ignore[return-value]
+
+
+def extract_manifest(
+    manifest_dir: str,
+    save_dir: str,
+    cfg: EncoderConfig,
+    state_dict: Mapping[str, torch.Tensor],
+    split: str = "train",
+    batch_size: int = 16,
+    mesh=None,
+    device: Union[str, torch.device] = "cuda",
+) -> Tuple[int, int]:
+    """Extracts every clip of ``<manifest_dir>/<split>.tsv`` and writes the
+    feature store (the reference CLI's --data/--split/--save-dir); returns
+    (clips, frames)."""
+    from ..audio.wavio import read_wav
+
+    root, files = read_manifest(manifest_dir, split)
+    extractor = FeatureExtractor(cfg, state_dict, batch_size=batch_size, device=device,
+                                 mesh=mesh)
+    os.makedirs(save_dir, exist_ok=True)
+    prefix = os.path.join(save_dir, split)
+
+    clips = []
+    for rel, _frames in files:
+        wav, sr = read_wav(os.path.join(root, rel))
+        if wav.ndim == 2:
+            wav = np.mean(wav, axis=1)
+        if sr != 16000:
+            raise ValueError(f"expected 16 kHz, got {sr} for {rel}")
+        clips.append(wav.astype(np.float32))
+
+    feats = extractor.extract_clips(clips)
+    flat = np.concatenate([f for f in feats if len(f)], axis=0)
+    np.save(prefix + ".npy", flat)
+    with open(prefix + ".lengths", "w") as f:
+        for x in feats:
+            print(len(x), file=f)
+
+    # the label sidecars travel with the store, as in the reference pipeline
+    for ext in (".emo", ".lbl", ".spk"):
+        src = os.path.join(manifest_dir, split + ext)
+        if os.path.exists(src):
+            with open(src, encoding="utf-8") as fi, open(prefix + ext, "w",
+                                                         encoding="utf-8") as fo:
+                fo.write(fi.read())
+
+    logger.info("extracted %d clips -> %s (%d frames)", len(files), save_dir, len(flat))
+    return len(files), len(flat)
+
+
+def add_extract_args(p: argparse.ArgumentParser) -> None:
+    """The flags of ``extract``, shared with the package's ``cli extract``."""
+    p.add_argument("--data", required=True, help="manifest dir with <split>.tsv")
+    p.add_argument("--split", default="train")
+    p.add_argument("--checkpoint", required=True, help="fairseq emotion2vec .pt")
+    p.add_argument("--save-dir", required=True)
+    p.add_argument("--layer", type=int, default=11,
+                   help="kept for CLI parity; the features_only path always returns the "
+                        "final (12th) block output, like the reference extraction config")
+    p.add_argument("--batch-size", type=int, default=16)
+    p.add_argument("--encoder-json", default=None,
+                   help="EncoderConfig overrides as inline JSON or a JSON file")
+    p.add_argument("--dp", type=int, default=0,
+                   help="data-parallel size (multi-GPU, not ported yet: > 0 exits 2)")
+    p.add_argument("--tp", type=int, default=1,
+                   help="tensor-parallel size (multi-GPU, not ported yet: > 1 exits 2)")
+    p.add_argument("--device", default="cuda",
+                   help="cuda (default) or cpu; without a GPU, cuda fails")
+
+
+def run(args) -> int:
+    """``extract`` from parsed flags; the encoder's config comes from
+    ``configs.encoder_config`` (frozen, so the forward-only attention
+    kernel serves)."""
+    from .convert import load_emotion2vec_checkpoint
+
+    if args.dp or args.tp > 1:
+        print(f"extract: error: --dp/--tp: {MESH_NOT_PORTED}", file=sys.stderr)
+        return 2
+    cfg = encoder_config(args.encoder_json)
+    state = load_emotion2vec_checkpoint(args.checkpoint, cfg)
+    extract_manifest(args.data, args.save_dir, cfg, state, args.split, args.batch_size,
+                     device=args.device)
+    return 0
+
+
+def main(argv=None) -> int:
+    p = argparse.ArgumentParser(description="extract emotion2vec features")
+    add_extract_args(p)
+    return run(p.parse_args(argv))
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -69,14 +69,12 @@ from ..models.convert import (
     torch_state_dict_to_ssrl,
 )
 from ..models.heads import SSRLState, load_pretrain_into_ssrl
-from ..utils import dump_json, get_logger, resolve_device
+from ..utils import MESH_NOT_PORTED, dump_json, get_logger, resolve_device
 from .checkpointing import restore_train_state, save_train_state
 
 logger = get_logger(__name__)
 
 METRIC_KEYS = ("total_loss", "supervised_ce_loss", "consistency_loss", "ecda_loss")
-MESH_NOT_PORTED = ("a mesh (multi-GPU data parallelism) is not ported yet: "
-                   "ROADMAP.md §1 item 9")
 RESIDENT_MAX_BYTES = 8 << 30
 
 

@@ -1,5 +1,5 @@
-from .device import resolve_device
+from .device import MESH_NOT_PORTED, resolve_device
 from .io import dump_json, load_json
 from .logging import get_logger
 
-__all__ = ["dump_json", "get_logger", "load_json", "resolve_device"]
+__all__ = ["MESH_NOT_PORTED", "dump_json", "get_logger", "load_json", "resolve_device"]

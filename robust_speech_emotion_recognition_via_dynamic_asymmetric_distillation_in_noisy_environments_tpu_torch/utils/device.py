@@ -11,6 +11,9 @@ from typing import Union
 
 import torch
 
+MESH_NOT_PORTED = ("a mesh (multi-GPU data parallelism) is not ported yet: "
+                   "ROADMAP.md §1 item 9")
+
 
 def resolve_device(device: Union[str, torch.device] = "cuda") -> torch.device:
     dev = torch.device(device)

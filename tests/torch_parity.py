@@ -12,6 +12,12 @@ from robust_speech_emotion_recognition_via_dynamic_asymmetric_distillation_in_no
 from robust_speech_emotion_recognition_via_dynamic_asymmetric_distillation_in_noisy_environments_tpu_torch.configs import (
     EncoderConfig as TorchEncoderConfig,
 )
+from robust_speech_emotion_recognition_via_dynamic_asymmetric_distillation_in_noisy_environments_tpu_torch.data.batching import (
+    Batch,
+)
+from robust_speech_emotion_recognition_via_dynamic_asymmetric_distillation_in_noisy_environments_tpu_torch.data.native import (
+    NativeStore,
+)
 from robust_speech_emotion_recognition_via_dynamic_asymmetric_distillation_in_noisy_environments_tpu_torch.models.convert import (
     flax_encoder_to_torch,
 )
@@ -40,6 +46,22 @@ def cfg_pair(**overrides):
     """(JAX EncoderConfig, port EncoderConfig) with the same fields."""
     kw = {**TINY, **overrides}
     return JaxEncoderConfig(**kw), TorchEncoderConfig(**kw)
+
+
+def native_batches(store, batches, max_frames=None):
+    """The port's native batcher (``NativeStore`` over ``store``) asked for
+    each of ``batches``' clips at its padded length, with the iterators'
+    frame cap applied after assembly, as ``PaddedBatchIterator`` does."""
+    ns = NativeStore(store.feats, store.sizes, store.offsets, store.labels)
+    out = []
+    for b in batches:
+        feats, mask, labels, valid = ns.assemble(b.ids.astype(np.int64), b.feats.shape[1])
+        if max_frames is not None:
+            feats[:, max_frames:] = 0.0
+            mask[:, max_frames:] = True
+        out.append(Batch(feats, mask, labels, b.ids, valid))
+    ns.close()
+    return out
 
 
 def to_torch(flax_params):
