@@ -2,8 +2,9 @@
 """Drives the PyTorch port's paths on one NVIDIA GPU and checks them: the
 serving path, the fused-norm probe, the conv front end through its kernel,
 the fused extract+train step, the feature-level trainer, the fused
-wav->train trainer, and stage 1 (manifest, injection, extraction) with
-inference.
+wav->train trainer, stage 1 (manifest, injection, extraction) with
+inference, and the supervised pretrain, the experiment harness and the
+analyses.
 
     python3 chip_smoke.py
 
@@ -128,7 +129,30 @@ Phases (any failure raises and the script exits non-zero without a result):
     engine, verification, extraction on the card): seconds a condition,
     its injection and its extraction pass. ``--only preprocess`` builds
     attention.cu and runs phases 1, 2, 9 and 10.
-11. prints the ``nvidia-smi`` line, a ``kernels`` JSON line (all four
+11. pretrain, experiments and analysis, on phase 10's clean and noisy
+    stores and phase 9's corpus and checkpoint: ``cli pretrain --corpus
+    iemocap --feat-path <clean> --folds 0 --max-epochs 5`` on the card (rc
+    0, the .ckpt's shapes, at most 5 epochs, test accuracy well above
+    chance, the .ckpt re-evaluating to the logged accuracy), then 2 epochs
+    of the same fold on the card and on the CPU from one init; ``cli
+    ablation --from-wav ... --weights <pretrain .ckpt> --suite standard
+    --experiments full_method,no_dacp --epochs 2 --warmup-epochs 1 --snr
+    10`` (bf16, attention through the kernel, resident: two rows without
+    an error, 12 attention launches per extraction batch of ONE shared
+    startup and per step of both experiments, each student at step 0 the
+    .ckpt's, DACP off in no_dacp, device memory not growing from one
+    experiment to the next); ``cli sensitivity`` on the stores over two
+    values of WEIGHT_ECDA (feature mode, resident, no kernel); ``cli
+    analyze`` (dacp, disagreement, bias on the full_method fold;
+    distribution on the clean store); the tsne embedding pass of both
+    param sets on the card against the CPU (t-SNE itself needs
+    scikit-learn, which that machine lacks); log-mel of one batch, card
+    against CPU. Prints pretrain s/epoch and ms/step, the ablation's
+    startup seconds by stage, seconds and peak device GB per experiment,
+    the attention launches, the sensitivity's seconds per point and the
+    seconds per analysis. ``--only experiments`` builds attention.cu and
+    runs phases 1, 2, 9, 10 and 11.
+12. prints the ``nvidia-smi`` line, a ``kernels`` JSON line (all four
     kernels; the conv entry sums its seven layers' numbers), then the
     result line ``{"ok": true, "device": {...}}`` last.
 """
@@ -141,6 +165,8 @@ import collections
 import concurrent.futures
 import contextlib
 import dataclasses
+import gc
+import importlib.util
 import itertools
 import json
 import math
@@ -159,9 +185,13 @@ import torch.nn.functional as F
 from robust_speech_emotion_recognition_via_dynamic_asymmetric_distillation_in_noisy_environments_tpu_torch import (
     cli,
 )
+from robust_speech_emotion_recognition_via_dynamic_asymmetric_distillation_in_noisy_environments_tpu_torch.analysis import (
+    tsne as tsne_mod,
+)
 from robust_speech_emotion_recognition_via_dynamic_asymmetric_distillation_in_noisy_environments_tpu_torch.configs import (
     EncoderConfig,
     dad_preset,
+    pretrain_preset,
 )
 from robust_speech_emotion_recognition_via_dynamic_asymmetric_distillation_in_noisy_environments_tpu_torch.dad import (
     StepScalars,
@@ -172,12 +202,15 @@ from robust_speech_emotion_recognition_via_dynamic_asymmetric_distillation_in_no
 from robust_speech_emotion_recognition_via_dynamic_asymmetric_distillation_in_noisy_environments_tpu_torch.audio import (
     NOISE_FILE_MAPPING,
     cli as audio_cli,
+    features as features_mod,
 )
 from robust_speech_emotion_recognition_via_dynamic_asymmetric_distillation_in_noisy_environments_tpu_torch.audio.wavio import (
     read_wav,
     write_wav,
 )
 from robust_speech_emotion_recognition_via_dynamic_asymmetric_distillation_in_noisy_environments_tpu_torch.data import (
+    PaddedBatchIterator,
+    corpus_fold_split,
     load_feature_store,
     prefetch,
     read_manifest,
@@ -188,6 +221,7 @@ from robust_speech_emotion_recognition_via_dynamic_asymmetric_distillation_in_no
     paired_epoch,
 )
 from robust_speech_emotion_recognition_via_dynamic_asymmetric_distillation_in_noisy_environments_tpu_torch.eval import (
+    accuracy,
     inference,
 )
 from robust_speech_emotion_recognition_via_dynamic_asymmetric_distillation_in_noisy_environments_tpu_torch.eval.serving import (
@@ -195,11 +229,14 @@ from robust_speech_emotion_recognition_via_dynamic_asymmetric_distillation_in_no
     PredictionServer,
 )
 from robust_speech_emotion_recognition_via_dynamic_asymmetric_distillation_in_noisy_environments_tpu_torch.exp import (
+    ablation as ablation_mod,
+    sensitivity as sensitivity_mod,
     write_noisy_manifest,
 )
 from robust_speech_emotion_recognition_via_dynamic_asymmetric_distillation_in_noisy_environments_tpu_torch.models.convert import (
     fairseq_to_torch_encoder,
     load_emotion2vec_checkpoint,
+    load_pretrain_head_checkpoint,
     load_torch_file,
     torch_state_dict_to_ssrl,
 )
@@ -211,6 +248,9 @@ from robust_speech_emotion_recognition_via_dynamic_asymmetric_distillation_in_no
 )
 from robust_speech_emotion_recognition_via_dynamic_asymmetric_distillation_in_noisy_environments_tpu_torch.models.heads import (
     SSRLState,
+    init_pretrain_head,
+    init_ssrl,
+    load_pretrain_into_ssrl,
 )
 from robust_speech_emotion_recognition_via_dynamic_asymmetric_distillation_in_noisy_environments_tpu_torch.models.layers import (
     ConvFeatureExtractor,
@@ -243,6 +283,7 @@ from robust_speech_emotion_recognition_via_dynamic_asymmetric_distillation_in_no
     FusedCrossDomainTrainer,
     dad_trainer,
     fused_trainer,
+    pretrain as pretrain_mod,
 )
 
 PORT_PKG = attention.__name__.split(".")[0]
@@ -2300,7 +2341,6 @@ def run_preprocess(root: str, corpus: dict, manifests: str, ckpt: str, best_pth:
         print(f"stage1: extract {what}: " + json.dumps(ext), flush=True)
     if errors:
         raise AssertionError("extraction, kernel vs plain attention: " + "; ".join(errors))
-    shutil.rmtree(f"{root}/features-clean")
 
     store = f"{root}/features-noisy"
     gpu = run_infer(best_pth, store, f"{root}/inference-cuda", "cuda")
@@ -2322,17 +2362,431 @@ def run_preprocess(root: str, corpus: dict, manifests: str, ckpt: str, best_pth:
     if len(differ) and margins.max() > INFER_TIE_MARGIN:
         raise AssertionError(f"infer: {len(differ)} predictions differ between the card and "
                              f"the CPU, with top-2 logit margins up to {margins.max():.3e}")
-    shutil.rmtree(store)
 
     info["preprocess"] = run_noise_grid_conditions(root, corpus, manifests, ckpt)
     grid_launches = sum(c["attention_launches"] for c in info["preprocess"].values())
-    return dict(launches=launches + grid_launches, info=info)
+    return dict(launches=launches + grid_launches, info=info,
+                stores={what: f"{root}/features-{what}" for what in ("clean", "noisy")})
 
 
-def run_stage1_and_fused(only_fused: bool = False) -> tuple:
-    """Phases 9 and 10 in one directory: the raw IEMOCAP-layout corpus and
+# phase 11, pretrain, the experiment harness and the analyses, on phase 10's
+# stores and phase 9's corpus and checkpoint: 5 pretrain epochs (the tones
+# separate within a few), 2 epochs an experiment (warmup 1, so that DACP,
+# ECDA and the consistency term run in the second)
+PRETRAIN_EPOCHS, EXPERIMENT_EPOCHS, PRETRAIN_COMPARE_EPOCHS = 5, 2, 2
+# pretrain test accuracy "well above" chance (4 classes)
+PRETRAIN_MIN_TEST_ACC = 0.5
+# card vs CPU pretrain, 2 epochs (~100 Adam steps at lr 2e-4) from one init,
+# f32 on both with TF32 off: the gradients differ by summation order only,
+# but Adam divides each by its running RMS, so a weight whose gradient
+# cancels to ~0 can take a step a few percent of lr apart on each device:
+# the weights within 1e-4, the losses within a relative 1e-3
+PRETRAIN_CARD_CPU_TOL = dict(atol=1e-4, rtol=1e-3)
+# the tsne embedding pass (768 -> 256 matmul, ReLU, mean over the clip's
+# frames), card vs CPU in f32 with TF32 off: summation order only
+EMBED_CARD_CPU_TOL = dict(atol=2e-5, rtol=1e-4)
+# log-mel of one batch, card (cuFFT) vs CPU, f32 FFTs of one frame layout:
+# an FFT rounds relative to its frame's energy, not to each bin's, so a
+# tone's near-silent mel bins (60-80 dB under the frame's peak) part by
+# ~1e-3 in the log (1.78e-3 on an H100 when the check was on the log at
+# 1e-4). The mel power is held within this share of its frame's largest
+# mel power (f32 rounding is ~1e-6 of it)
+LOGMEL_FRAME_REL_TOL = 1e-5
+# an experiment's peak device memory may pass the first one's by this share
+# (allocator rounding), no more: the trainer before it is freed
+PEAK_GROWTH = 0.01
+SUMMARIES = {"dacp": "dacp_evolution_summary.json", "disagreement": "disagreement_summary.json",
+             "bias": "confirmation_bias_summary.json",
+             "distribution": "distribution_summary.json"}
+
+
+class PretrainProbe:
+    """A CUDA event before every pretrain training step (their spacing is
+    the device's time per step) and the host clock at the first step and
+    after every evaluation pass (each ends in a host read): an epoch runs
+    from one validation's end to the next."""
+
+    def __enter__(self) -> "PretrainProbe":
+        self.events, self.marks, self.first_step = [], [], None
+        self._saved = (pretrain_mod.make_pretrain_steps, pretrain_mod._run_eval)
+        make, run_eval = self._saved
+        probe = self
+
+        def wrapped_make(*args, **kwargs):
+            train_step, eval_step = make(*args, **kwargs)
+
+            def timed(*a, **kw):
+                if probe.first_step is None:
+                    probe.first_step = time.perf_counter()
+                event = torch.cuda.Event(enable_timing=True)
+                event.record()
+                probe.events.append(event)
+                return train_step(*a, **kw)
+
+            return timed, eval_step
+
+        def timed_eval(*a, **kw):
+            out = run_eval(*a, **kw)
+            probe.marks.append((len(probe.events), time.perf_counter()))
+            return out
+
+        pretrain_mod.make_pretrain_steps, pretrain_mod._run_eval = wrapped_make, timed_eval
+        return self
+
+    def __exit__(self, *exc) -> None:
+        pretrain_mod.make_pretrain_steps, pretrain_mod._run_eval = self._saved
+
+    def summary(self) -> dict:
+        """Seconds of each epoch (training and validation), the steps of an
+        epoch and the median ms per step of the last."""
+        vals = self.marks[:-1]  # the last pass is the test split's
+        starts = [(0, self.first_step)] + vals[:-1]
+        (i0, _), (i1, _) = starts[-1], vals[-1]
+        ev = self.events[i0:i1]
+        ms = [a.elapsed_time(b) for a, b in zip(ev, ev[1:])]
+        return dict(epoch_s=[t1 - t0 for (_, t0), (_, t1) in zip(starts, vals)],
+                    steps_per_epoch=i1 - i0,
+                    ms_per_step_median=float(np.median(ms)) if ms else None,
+                    ms_per_step_range=[min(ms), max(ms)] if ms else None)
+
+
+def pretrain_card_against_cpu(cfg, store) -> dict:
+    """``pretrain_fold`` on the card and on the CPU from one init for
+    PRETRAIN_COMPARE_EPOCHS epochs: the loss series and the weights within
+    PRETRAIN_CARD_CPU_TOL."""
+    cfg = dataclasses.replace(cfg, max_epochs=PRETRAIN_COMPARE_EPOCHS)
+    _head, init = init_pretrain_head(torch.Generator().manual_seed(7), cfg.input_dim,
+                                     cfg.hidden_dim, cfg.num_classes)
+    runs, secs = {}, {}
+    for device in ("cuda", "cpu"):
+        t0 = time.perf_counter()
+        runs[device] = pretrain_mod.pretrain_fold(cfg, store, 0, device=device,
+                                                  init_params=init)
+        secs[device] = time.perf_counter() - t0
+    card, cpu = runs["cuda"], runs["cpu"]
+    losses = {k: float(np.max(np.abs(np.subtract(card["history"][k], cpu["history"][k]))))
+              for k in ("train_loss", "val_loss")}
+    weights = {k: float((v.cpu() - cpu["params"][k]).abs().max())
+               for k, v in card["params"].items()}
+    bad = [k for k in losses if not close(card["history"][k], cpu["history"][k],
+                                          PRETRAIN_CARD_CPU_TOL)]
+    bad += [k for k, v in card["params"].items()
+            if not close(v.cpu().numpy(), cpu["params"][k].numpy(), PRETRAIN_CARD_CPU_TOL)]
+    out = dict(epochs=PRETRAIN_COMPARE_EPOCHS, seconds=secs, loss_max_abs_diff=losses,
+               weight_max_abs_diff=weights,
+               val_acc=dict(card=card["history"]["val_acc"], cpu=cpu["history"]["val_acc"]),
+               test_acc=dict(card=card["test"]["accuracy"], cpu=cpu["test"]["accuracy"]))
+    if bad:
+        raise AssertionError(f"pretrain, card vs CPU over {PRETRAIN_COMPARE_EPOCHS} epochs: "
+                             f"{bad} beyond {PRETRAIN_CARD_CPU_TOL}: {json.dumps(out)}")
+    return out
+
+
+def run_pretrain(root: str, clean_dir: str) -> dict:
+    """``cli pretrain`` on the card over phase 10's clean store (the
+    iemocap preset at full width, fold 0, PRETRAIN_EPOCHS epochs): rc 0, the
+    .ckpt's shapes, the history, test accuracy well above chance, the .ckpt
+    re-evaluating to the logged test accuracy; then card against CPU."""
+    save_dir = f"{root}/pretrain"
+    zero_kernel_launches()
+    with PretrainProbe() as probe:
+        sec = timed_cli(["pretrain", "--corpus", "iemocap", "--feat-path", clean_dir,
+                         "--folds", "0", "--max-epochs", str(PRETRAIN_EPOCHS),
+                         "--save-dir", save_dir])
+    if any(kernel_launches().values()):
+        raise AssertionError(f"pretrain launched a kernel: {kernel_launches()}")
+    ckpt = f"{save_dir}/best_model_fold_1.ckpt"
+    params = load_pretrain_head_checkpoint(ckpt)
+    shapes = {k: tuple(v.shape) for k, v in params.items()}
+    if shapes != {"pre_net.weight": (256, 768), "pre_net.bias": (256,),
+                  "post_net.weight": (4, 256), "post_net.bias": (4,)}:
+        raise AssertionError(f"pretrain .ckpt shapes {shapes}")
+    with open(f"{save_dir}/training_history.json") as f:
+        history = json.load(f)["fold_1"]
+    with open(f"{save_dir}/test_results.json") as f:
+        logged = json.load(f)["fold_test_accuracies"][0]
+    if not (0 < len(history["epochs"]) <= PRETRAIN_EPOCHS
+            and np.all(np.isfinite(history["train_loss"]))):
+        raise AssertionError(f"pretrain history {history}")
+    if not logged > PRETRAIN_MIN_TEST_ACC:
+        raise AssertionError(f"pretrain test accuracy {logged} is not well above chance")
+
+    cfg = pretrain_preset("iemocap", feat_path=clean_dir)
+    store = load_feature_store(clean_dir, cfg.label_map)
+    head, _ = init_pretrain_head(None, device="cuda")
+    _train, eval_step = pretrain_mod.make_pretrain_steps(
+        head, pretrain_mod.build_pretrain_optimizer(cfg))
+    _tr, _va, te = corpus_fold_split("iemocap", 0, store.groups)
+    _loss, y_true, y_pred = pretrain_mod._run_eval(
+        eval_step, {k: v.cuda() for k, v in params.items()},
+        PaddedBatchIterator(store.subset(te), cfg.batch_size, cfg.length_buckets), "cuda")
+    if accuracy(y_true, y_pred) != logged:
+        raise AssertionError(f"the reloaded .ckpt re-evaluates to test accuracy "
+                             f"{accuracy(y_true, y_pred)}, logged {logged}")
+    info = dict(cli_seconds=sec, **probe.summary(), epochs=len(history["epochs"]),
+                test_accuracy=logged, val_acc=history["val_acc"],
+                train_loss=history["train_loss"])
+    print("experiments: pretrain " + json.dumps(info), flush=True)
+    compare = pretrain_card_against_cpu(cfg, store)
+    print(f"experiments: pretrain card vs CPU, {PRETRAIN_COMPARE_EPOCHS} epochs from one init "
+          + json.dumps(compare), flush=True)
+    del store
+    return dict(ckpt=ckpt, info=info, card_vs_cpu=compare)
+
+
+class ExperimentProbe:
+    """Around a sweep's experiments (``target.name``, the runner the suite
+    calls): each experiment's seconds, the device memory held when it starts
+    and its peak (reset before it), and at each trainer's construction
+    (``cls``) its student's pre_net and classifier on the host and its steps
+    an epoch. No trainer is kept, so that the memory check sees what the
+    sweep frees."""
+
+    def __init__(self, target, name: str, cls):
+        self.target, self.name, self.cls = target, name, cls
+        self.experiments, self.trainers = [], []
+
+    def __enter__(self) -> "ExperimentProbe":
+        real, init, probe = getattr(self.target, self.name), self.cls.__init__, self
+
+        def timed(*a, **kw):
+            gc.collect()  # earlier phases' garbage out of the held bytes and the peak
+            torch.cuda.synchronize()
+            held = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            row = real(*a, **kw)
+            torch.cuda.synchronize()
+            probe.experiments.append(dict(
+                name=row["name"], seconds=time.perf_counter() - t0, held_gb=held / 1e9,
+                peak_gb=torch.cuda.max_memory_allocated() / 1e9))
+            return row
+
+        def probed_init(obj, *a, **kw):
+            init(obj, *a, **kw)
+            student = obj.state.ssrl.student
+            probe.trainers.append(dict(
+                name=obj.experiment_name, resident=obj._resident is not None,
+                steps_per_epoch=min(len(obj.clean_train),
+                                    len(getattr(obj, "noisy_wav_train", obj.noisy_train))),
+                student={k: v.detach().cpu().clone() for k, v in student.items()}))
+
+        self._saved = (real, self.cls.__dict__.get("__init__"))
+        setattr(self.target, self.name, timed)
+        self.cls.__init__ = probed_init
+        return self
+
+    def __exit__(self, *exc) -> None:
+        setattr(self.target, self.name, self._saved[0])
+        if self._saved[1] is None:
+            del self.cls.__init__
+        else:
+            self.cls.__init__ = self._saved[1]
+
+    def check_memory(self, what: str) -> None:
+        """The memory held at each experiment's start and its peak do not
+        grow past the first experiment's (PEAK_GROWTH)."""
+        first = self.experiments[0]
+        for e in self.experiments[1:]:
+            if e["held_gb"] > first["held_gb"] * (1 + PEAK_GROWTH) + 1e-3 or \
+                    e["peak_gb"] > first["peak_gb"] * (1 + PEAK_GROWTH):
+                raise AssertionError(f"{what}: device memory grew from experiment to "
+                                     f"experiment: {self.experiments}")
+
+
+def check_rows(path: str, names: list, what: str) -> list:
+    with open(path) as f:
+        rows = json.load(f)
+    if [r["name"] for r in rows] != names or any("error" in r for r in rows):
+        raise AssertionError(f"{what}: rows {rows}")
+    return rows
+
+
+def run_ablation(root: str, manifests: str, ckpt: str, pm_ckpt: str, clips: int) -> dict:
+    """``cli ablation --from-wav`` (bf16, attention through the kernel, the
+    corpus resident) over two experiments of the standard suite: rc 0, the
+    rows, one shared startup (the attention launches), each student at its
+    first step the pretrain .ckpt, DACP off in no_dacp, memory not growing."""
+    out = f"{root}/ablation/ablation_results.json"
+    names = ["full_method", "no_dacp"]
+    zero_kernel_launches()
+    with StartupProbe() as startup, \
+            ExperimentProbe(ablation_mod, "run_single_fused_experiment",
+                            FusedCrossDomainTrainer) as probe:
+        sec = timed_cli(["ablation", "--corpus", "iemocap", "--from-wav", manifests,
+                         "--checkpoint", ckpt, "--weights", pm_ckpt, "--suite", "standard",
+                         "--experiments", ",".join(names), "--fold", "0", "--epochs",
+                         str(EXPERIMENT_EPOCHS), "--warmup-epochs", "1", "--snr", "10",
+                         "--output", out])
+    launches = kernel_launches()
+    rows = check_rows(out, names, "ablation")
+    if not all("noisy_wa" in r for r in rows) or not os.path.exists(out[:-5] + ".md"):
+        raise AssertionError(f"ablation: noisy_wa not scraped or no .md: {rows}")
+    passes = sum(1 for name, _s in startup.stages if name == "extraction")
+    steps = sum(EXPERIMENT_EPOCHS * t["steps_per_epoch"] for t in probe.trainers)
+    batches = -(-clips // EXTRACT_BATCH)
+    want = dict(flash_attention=12 * (2 * batches + steps), fused_layernorm=0,
+                fused_conv_ln_gelu=0, copy_rows=0)
+    if passes != 2 or launches != want:
+        raise AssertionError(f"ablation: {passes} extraction passes, kernel launches {launches}, "
+                             f"expected 2 and {want} (12 x (2 x {batches} + {steps} steps))")
+    pretrained = load_pretrain_head_checkpoint(pm_ckpt)
+    for t in probe.trainers:
+        if not (t["resident"] and all(torch.equal(t["student"][f"encoder.pre_net.{k}"],
+                                                  pretrained[f"pre_net.{k}"])
+                                      and torch.equal(t["student"][f"classifier.fc_layer.{k}"],
+                                                      pretrained[f"post_net.{k}"])
+                                      for k in ("weight", "bias"))):
+            raise AssertionError(f"ablation {t['name']}: not resident, or its student at step "
+                                 "0 is not the pretrain .ckpt")
+    hist = {}
+    for r in rows:
+        with open(f"{r['results_dir']}/reports/training_history.json") as f:
+            hist[r["name"]] = json.load(f)
+    off = np.asarray(hist["no_dacp"]["dacp_ema_thresholds"])
+    on = np.asarray(hist["full_method"]["dacp_ema_thresholds"])
+    if not (off.size and np.all(off == 0.5) and np.any(on != 0.5)):
+        raise AssertionError(f"ablation: DACP thresholds full_method {on.tolist()}, "
+                             f"no_dacp {off.tolist()} (DACP off keeps 0.5)")
+    probe.check_memory("ablation")
+    info = dict(cli_seconds=sec, startup_s=startup.summary(), experiments=probe.experiments,
+                steps=steps, attention_launches=launches["flash_attention"],
+                rows=[{k: r[k] for k in ("name", "noisy_wa", "noisy_wf1", "clean_wa", "epoch")}
+                      for r in rows],
+                dacp_thresholds=dict(full_method=on.tolist(), no_dacp=off.tolist()))
+    print("experiments: ablation --from-wav " + json.dumps(info), flush=True)
+    return dict(launches=launches["flash_attention"], info=info,
+                fold_dir=rows[0]["results_dir"])
+
+
+def run_sensitivity(root: str, stores: dict, pm_ckpt: str) -> dict:
+    """``cli sensitivity`` on phase 10's stores (feature mode, resident, no
+    kernel on it) over two values of WEIGHT_ECDA: rc 0, two rows, no error."""
+    out_dir = f"{root}/sensitivity"
+    zero_kernel_launches()
+    with ExperimentProbe(sensitivity_mod, "run_single_experiment",
+                         dad_trainer.CrossDomainTrainer) as probe:
+        sec = timed_cli(["sensitivity", "--corpus", "iemocap", "--clean", stores["clean"],
+                         "--noisy", stores["noisy"], "--weights", pm_ckpt, "--knob",
+                         "WEIGHT_ECDA", "--values", "0.0,0.5", "--epochs",
+                         str(EXPERIMENT_EPOCHS), "--warmup-epochs", "1", "--output-dir",
+                         out_dir])
+    rows = check_rows(f"{out_dir}/sensitivity_WEIGHT_ECDA.json",
+                      ["sens_WEIGHT_ECDA_0.0", "sens_WEIGHT_ECDA_0.5"], "sensitivity")
+    if any(kernel_launches().values()) or not all(t["resident"] for t in probe.trainers):
+        raise AssertionError(f"sensitivity: kernels {kernel_launches()}, resident "
+                             f"{[t['resident'] for t in probe.trainers]}")
+    probe.check_memory("sensitivity")
+    info = dict(cli_seconds=sec, points=probe.experiments,
+                rows=[{k: r.get(k) for k in ("name", "value", "noisy_wa", "epoch")}
+                      for r in rows])
+    print("experiments: sensitivity " + json.dumps(info), flush=True)
+    return info
+
+
+def embedding_card_against_cpu(noisy_dir: str, pm_ckpt: str, dad_pth: str) -> dict:
+    """The tsne embedding pass (``DADHead.embed``) for both param sets of
+    ``analyze --kind tsne`` over the noisy store's fold-0 test split, on the
+    card and on the CPU, within EMBED_CARD_CPU_TOL."""
+    cfg = dad_preset("iemocap")
+    store = load_feature_store(noisy_dir, cfg.label_map)
+    _tr, _va, te = corpus_fold_split("iemocap", 0, store.groups)
+    sub = store.subset(te)
+    _h, fresh = init_ssrl(torch.Generator().manual_seed(0), cfg.input_dim, cfg.hidden_dim)
+    sets = {"pretrain": load_pretrain_into_ssrl(fresh, load_pretrain_head_checkpoint(pm_ckpt))
+            .student, "dad": torch_state_dict_to_ssrl(load_torch_file(dad_pth)).student}
+    out = {}
+    for name, params in sets.items():
+        res = {}
+        for device in ("cuda", "cpu"):
+            t0 = time.perf_counter()
+            res[device] = tsne_mod.embed_all(tsne_mod.make_embedder(cfg, params, device),
+                                             PaddedBatchIterator(sub, cfg.batch_size,
+                                                                 cfg.length_buckets), device)
+            res[f"{device}_s"] = time.perf_counter() - t0
+        (X, y), (X_cpu, y_cpu) = res["cuda"], res["cpu"]
+        if not (np.array_equal(y, y_cpu) and close(X, X_cpu, EMBED_CARD_CPU_TOL)):
+            raise AssertionError(f"tsne embedding {name}: card vs CPU beyond "
+                                 f"{EMBED_CARD_CPU_TOL}: {np.abs(X - X_cpu).max()}")
+        out[name] = dict(clips=len(y), card_s=res["cuda_s"], cpu_s=res["cpu_s"],
+                         max_abs_diff=float(np.abs(X - X_cpu).max()))
+    if importlib.util.find_spec("sklearn") is None:
+        try:
+            tsne_mod.analyze_tsne(cfg, sub, sets, "tsne-unused", device="cuda")
+        except ImportError as e:
+            if "scikit-learn" not in str(e):
+                raise
+        else:
+            raise AssertionError("analyze_tsne ran without scikit-learn")
+        print("experiments: analyze --kind tsne not run: scikit-learn is not installed here "
+              "(its embedding pass, above, is the device's half; it raised ImportError "
+              "naming scikit-learn)", flush=True)
+    else:
+        print("experiments: analyze --kind tsne not run: t-SNE of the corpus on the host "
+              "takes minutes (its embedding pass, above, is the device's half)", flush=True)
+    return out
+
+
+def logmel_card_against_cpu(manifests: str) -> dict:
+    """Log-mel of one batch of the corpus (16 clips cut or padded to 4 s)
+    on the card against the CPU: the mel power within LOGMEL_FRAME_REL_TOL
+    of each frame's largest."""
+    root, files = read_manifest(manifests)
+    n = 4 * SAMPLE_RATE
+    wav = np.zeros((16, n), np.float32)
+    for i, (rel, _frames) in enumerate(files[:16]):
+        x, _sr = read_wav(os.path.join(root, rel))
+        wav[i, :min(n, len(x))] = x[:n]
+    cpu = features_mod.log_mel_spectrogram(torch.from_numpy(wav)).double()
+    card = features_mod.log_mel_spectrogram(torch.from_numpy(wav).cuda()).cpu().double()
+    p_cpu, p_card = cpu.exp(), card.exp()
+    peak = p_cpu.amax(dim=-1, keepdim=True)
+    rel = float(((p_card - p_cpu).abs() / peak).max())
+    near = p_cpu >= 1e-6 * peak  # within 60 dB of the frame's peak
+    out = dict(shape=list(card.shape), power_max_diff_over_frame_peak=rel,
+               log_max_abs_diff=float((card - cpu).abs().max()),
+               log_max_abs_diff_within_60db=float((card - cpu).abs()[near].max()))
+    if not (card.shape == cpu.shape == (16, 1 + (n - 400) // 160, 80)
+            and rel <= LOGMEL_FRAME_REL_TOL):
+        raise AssertionError(f"log-mel card vs CPU: {json.dumps(out)}")
+    return out
+
+
+def run_experiments(root: str, manifests: str, ckpt: str, stores: dict) -> dict:
+    """Phase 11: ``cli pretrain`` (card, then card vs CPU), ``cli ablation
+    --from-wav`` through the attention kernel, ``cli sensitivity`` on the
+    stores, ``cli analyze`` (dacp, disagreement, bias on the full_method
+    fold; distribution on the clean store), the tsne embedding pass card vs
+    CPU and log-mel card vs CPU."""
+    t0 = time.perf_counter()
+    _root, files = read_manifest(manifests)
+    pre = run_pretrain(root, stores["clean"])
+    abl = run_ablation(root, manifests, ckpt, pre["ckpt"], len(files))
+    sens = run_sensitivity(root, stores, pre["ckpt"])
+    analyze = {}
+    for kind in ("dacp", "disagreement", "bias", "distribution"):
+        src = (["--feat-dir", stores["clean"]] if kind == "distribution"
+               else ["--results-dir", abl["fold_dir"]])
+        out = f"{root}/analysis/{kind}"
+        analyze[kind] = timed_cli(["analyze", "--kind", kind, *src, "--out-dir", out])
+        if not os.path.exists(f"{out}/{SUMMARIES[kind]}"):
+            raise AssertionError(f"analyze --kind {kind} wrote no {SUMMARIES[kind]}")
+    print("experiments: analyze seconds " + json.dumps(analyze), flush=True)
+    embed = embedding_card_against_cpu(
+        stores["noisy"], pre["ckpt"], f"{abl['fold_dir']}/models/iemocap_cross_domain_best.pth")
+    print("experiments: tsne embedding pass, card vs CPU " + json.dumps(embed), flush=True)
+    logmel = logmel_card_against_cpu(manifests)
+    print("experiments: log-mel, card vs CPU " + json.dumps(logmel), flush=True)
+    print(f"experiments: phase 11 in {time.perf_counter() - t0:.1f} s", flush=True)
+    return dict(launches=abl["launches"], pretrain=pre["info"], ablation=abl["info"],
+                sensitivity=sens, analyze_s=analyze, embedding=embed, logmel=logmel)
+
+
+def run_stage1_and_fused(only_fused: bool = False, experiments: bool = True) -> tuple:
+    """Phases 9-11 in one directory: the raw IEMOCAP-layout corpus and
     ``cli manifest`` (phase 10's first steps), the fused trainer on that
-    manifest (phase 9), then the rest of phase 10 unless ``only_fused``."""
+    manifest (phase 9), then unless ``only_fused`` the rest of phase 10,
+    and with ``experiments`` phase 11 on its stores."""
     with tempfile.TemporaryDirectory(prefix="dad_stage1_") as root, contextlib.chdir(root):
         t0 = time.perf_counter()
         corpus = write_iemocap_corpus(root, seed=0)
@@ -2349,9 +2803,11 @@ def run_stage1_and_fused(only_fused: bool = False) -> tuple:
         print(f"stage1: corpus {json.dumps(corpus)}, written in {write_s:.1f} s; cli manifest "
               f"{manifest_s:.2f} s", flush=True)
         fused = run_fused_trainer(root, manifests, ckpt)
-        pre = None if only_fused else run_preprocess(root, corpus, manifests, ckpt,
-                                                     fused["best_path"])
-    return fused, pre
+        if only_fused:
+            return fused, None, None
+        pre = run_preprocess(root, corpus, manifests, ckpt, fused["best_path"])
+        exp = run_experiments(root, manifests, ckpt, pre["stores"]) if experiments else None
+    return fused, pre, exp
 
 
 T_START = time.perf_counter()
@@ -2359,13 +2815,16 @@ T_START = time.perf_counter()
 
 def parse_args(argv=None) -> argparse.Namespace:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    p.add_argument("--only", choices=("attention", "conv", "trainer", "fused", "preprocess"),
+    p.add_argument("--only", choices=("attention", "conv", "trainer", "fused", "preprocess",
+                                      "experiments"),
                    help="attention: build and run phases 1-3 only; conv: build conv.cu and "
                         "run phases 1, 2 and 6, then the conv grid comparison (to time two "
                         "checkouts in one call); trainer: build nothing, run phase 8 only; "
                         "fused: build attention.cu and run phases 1, 2 and 9 (with phase 10's "
                         "corpus and manifest); preprocess: build attention.cu and run phases "
-                        "1, 2, 9 and 10 (phase 10 reads phase 9's checkpoint)")
+                        "1, 2, 9 and 10 (phase 10 reads phase 9's checkpoint); experiments: "
+                        "build attention.cu and run phases 1, 2, 9, 10 and 11 (phase 11 "
+                        "reads phase 10's stores)")
     return p.parse_args(argv)
 
 
@@ -2382,7 +2841,8 @@ def main(argv=None) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
 
     sources = {None: SOURCES, "trainer": (), "fused": ("attention",),
-               "preprocess": ("attention",)}.get(args.only, (args.only,))
+               "preprocess": ("attention",), "experiments": ("attention",)}.get(
+        args.only, (args.only,))
     t0 = time.perf_counter()
     if sources:
         with concurrent.futures.ThreadPoolExecutor(len(sources)) as pool:
@@ -2396,8 +2856,9 @@ def main(argv=None) -> int:
 
     if args.only == "trainer":
         run_feature_trainer()
-    elif args.only in ("fused", "preprocess"):
-        run_stage1_and_fused(only_fused=args.only == "fused")
+    elif args.only in ("fused", "preprocess", "experiments"):
+        run_stage1_and_fused(only_fused=args.only == "fused",
+                             experiments=args.only == "experiments")
     elif args.only == "conv":
         # the serving slice's encoder weights and the training slice's noisy batch
         enc_cfg = EncoderConfig(dtype="bfloat16", use_flash_attention=True)
@@ -2423,7 +2884,7 @@ def main(argv=None) -> int:
     del clean, noisy
     torch.cuda.empty_cache()
     run_feature_trainer()
-    fused, pre = run_stage1_and_fused()
+    fused, pre, exp = run_stage1_and_fused()
 
     def entry(name, source, replaces, launches, r):
         return dict(name=name, route="cuda", source=f"{PORT_PKG}/csrc/{source}",
@@ -2441,8 +2902,8 @@ def main(argv=None) -> int:
     front["bound_by"] = "operations" if ops_bound > front["bound_ms"] / 2 else "bytes"
     kernels = [
         entry("flash_attention", "attention.cu", f"{JAX_PKG}/ops/attention.py:28",
-              slice_info["launches"] + train["launches"] + fused["launches"] + pre["launches"],
-              step_attn),
+              slice_info["launches"] + train["launches"] + fused["launches"] + pre["launches"]
+              + exp["launches"], step_attn),
         entry("fused_layernorm", "fused_norm.cu", f"{JAX_PKG}/ops/fused_norm.py:44",
               norm["launches"]["fused_layernorm"], norm["rows"][("ln_gelu", torch.bfloat16)]),
         entry("fused_conv_ln_gelu", "conv.cu", f"{JAX_PKG}/ops/conv.py:86",

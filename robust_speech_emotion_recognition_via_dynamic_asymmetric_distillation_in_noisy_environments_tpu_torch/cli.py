@@ -3,8 +3,12 @@
     python -m <pkg> manifest --corpus iemocap --root IEMOCAP --eval_dir EVAL --dest MANIFESTS
     python -m <pkg> inject --input_root IEMOCAP --output_root NOISY --manifest_path M --verify
     python -m <pkg> extract --data MANIFESTS --checkpoint emotion2vec_base.pt --save-dir FEATS
+    python -m <pkg> pretrain --corpus iemocap --feat-path FEATS --save-dir PM
     python -m <pkg> dad --corpus iemocap --clean FEATS --noisy NOISY_FEATS [--weights pm.ckpt]
     python -m <pkg> dad --corpus iemocap --from-wav MANIFESTS --checkpoint emotion2vec_base.pt
+    python -m <pkg> ablation --corpus iemocap --clean FEATS --noisy NOISY_FEATS --suite standard
+    python -m <pkg> sensitivity --corpus iemocap --from-wav MANIFESTS --checkpoint ... --knob WEIGHT_ECDA
+    python -m <pkg> analyze --kind disagreement --results-dir RESULTS/fold_1
     python -m <pkg> infer --weights dad_best.pth --test-data NOISY_FEATS [--split all]
     python -m <pkg> serve --weights dad_best.pth [--checkpoint emotion2vec_base.pt]
 
@@ -20,16 +24,22 @@ touches a tensor (default ``cuda``; ``cpu`` to run on the CPU):
 - ``serve``;
 - ``dad`` on feature stores (``--clean``/``--noisy``): the feature-level
   DAD trainer;
-- ``dad --from-wav``: the fused wav->train trainer.
-The encoders of ``extract``, ``preprocess``, ``serve`` and ``dad
---from-wav`` run attention through the hand-written CUDA kernel unless
-``--encoder-json`` sets ``use_flash_attention``. Both ``dad`` modes hold the
-fold's training corpus on the device when it fits (``--resident auto``, the
-default; ``on`` / ``off``). ``--fold all`` logs a failed fold and goes on,
-then exits with status 1. ``--dp``/``--tp`` (multi-GPU) exit with status 2,
-naming the ROADMAP.md item that brings them. The JAX package's other
-subcommands are recognised and exit with status 2, saying they are not
-ported yet.
+- ``dad --from-wav``: the fused wav->train trainer;
+- ``pretrain``: the supervised pretrain stage (the ``.ckpt`` that
+  ``--weights`` takes);
+- ``ablation`` and ``sensitivity``: the experiment harness, on feature
+  stores or ``--from-wav`` (the startup shared by all experiments);
+- ``analyze``: disagreement, confirmation bias, DACP evolution, corpus
+  distribution and t-SNE (the t-SNE itself needs scikit-learn).
+The encoders of ``extract``, ``preprocess``, ``serve`` and the
+``--from-wav`` modes run attention through the hand-written CUDA kernel
+unless ``--encoder-json`` sets ``use_flash_attention``. The trainers hold
+the fold's training corpus on the device when it fits (``--resident
+auto``, the default; ``on`` / ``off``). ``dad --fold all``, ``ablation``
+and ``sensitivity`` log a failed fold or experiment and go on, then exit
+with status 1. ``--dp``/``--tp`` (multi-GPU) exit with status 2, naming the
+ROADMAP.md item that brings them. ``d2v-pretrain`` and ``d2v-pack`` are
+recognised and exit with status 2, saying they are not ported yet.
 """
 
 from __future__ import annotations
@@ -38,9 +48,7 @@ import argparse
 import os
 import sys
 
-NOT_PORTED = (
-    "pretrain", "d2v-pretrain", "d2v-pack", "ablation", "sensitivity", "analyze",
-)
+NOT_PORTED = ("d2v-pretrain", "d2v-pack")
 
 
 def _cmd_manifest(args):
@@ -212,15 +220,50 @@ def _sweep_cfg_kw(args) -> dict:
 RESIDENT = {"auto": "auto", "on": True, "off": False}
 
 
-def _sweep_rc(summary: dict) -> int:
-    """A ``--fold all`` sweep logs a failed fold and goes on to the next;
-    its exit status is 1 when any fold failed."""
-    failed = [r["fold"] for r in summary["folds"] if "error" in r]
+def _failures_rc(rows: list, what: str, key: str) -> int:
+    """A sweep (``--fold all``, an ablation suite, a sensitivity grid) logs
+    a failed fold or experiment and goes on to the next; its exit status is
+    1 when any row holds an ``"error"`` (a multi-noise row: any of its
+    cells)."""
+    failed = [r[key] for r in rows
+              if "error" in r or any("error" in c for c in r.get("per_noise", {}).values())]
     if not failed:
         return 0
-    print(f"dad_torch: error: fold(s) {failed} of {len(summary['folds'])} failed",
-          file=sys.stderr)
+    print(f"dad_torch: error: {what} {failed} of {len(rows)} failed", file=sys.stderr)
     return 1
+
+
+def _sweep_rc(summary: dict) -> int:
+    return _failures_rc(summary["folds"], "fold(s)", "fold")
+
+
+def _cmd_pretrain(args):
+    from .configs import pretrain_preset
+    from .train.pretrain import train_with_early_stopping
+
+    # --max-epochs (default 100) overrides the variant's own max_epochs, as
+    # in the JAX package's CLI
+    cfg = pretrain_preset(args.corpus, variant=args.variant, feat_path=args.feat_path,
+                          save_dir=args.save_dir, max_epochs=args.max_epochs)
+    folds = tuple(int(f) for f in args.folds.split(",")) if args.folds else None
+    train_with_early_stopping(cfg, folds=folds, device=args.device)
+    return 0
+
+
+def _add_pretrain_parser(sub) -> None:
+    p = sub.add_parser("pretrain", help="supervised pretrain of the head on a feature store")
+    p.add_argument("--corpus", choices=["iemocap", "casia", "emodb"], required=True)
+    p.add_argument("--feat-path", required=True)
+    p.add_argument("--save-dir", default="train_for_clean_models")
+    p.add_argument("--max-epochs", type=int, default=100,
+                   help="overrides the variant's max_epochs")
+    p.add_argument("--folds", default=None, help="comma-separated 0-based folds")
+    p.add_argument("--variant", choices=["default", "advanced", "cosine", "debug"],
+                   default="default",
+                   help="reference TrainingConfig variants (config.py:4-147)")
+    p.add_argument("--device", default="cuda",
+                   help="cuda (default) or cpu; without a GPU, cuda fails")
+    p.set_defaults(func=_cmd_pretrain)
 
 
 def _cmd_dad(args):
@@ -306,6 +349,235 @@ def _cmd_dad_fused(args):
         FusedCrossDomainTrainer(cfg, args.from_wav, enc_cfg, enc_params, fold=int(args.fold),
                                 **common).train(resume=args.resume)
     return 0
+
+
+def _cmd_ablation(args):
+    from .configs import dad_preset
+    from .exp import (
+        GRANULAR_ABLATIONS,
+        STANDARD_ABLATIONS,
+        fused_noise_condition_experiments,
+        noise_condition_experiments,
+        parse_injection_cells,
+        run_ablation_suite,
+        run_fused_ablation_suite,
+        run_fused_multi_noise_suite,
+        run_multi_noise_suite,
+    )
+
+    if args.multi_noise and args.suite == "noise":
+        raise ValueError(
+            "--multi-noise already sweeps noise conditions; pick the "
+            "mechanism suite to average (--suite standard or granular)"
+        )
+
+    def pick(suite):
+        """--experiments: a named subset of the suite (unknown names fail)."""
+        if not args.experiments:
+            return suite
+        names = [n.strip() for n in args.experiments.split(",") if n.strip()]
+        unknown = [n for n in names if n not in suite]
+        if unknown:
+            raise ValueError(f"--experiments {unknown} not in suite {sorted(suite)}")
+        return {n: suite[n] for n in names}
+
+    mechanisms = STANDARD_ABLATIONS if args.suite == "standard" else GRANULAR_ABLATIONS
+    common = dict(fold=args.fold, device=args.device,
+                  trainer_kw={"resident": RESIDENT[args.resident]})
+    if args.from_wav:
+        cfg = dad_preset(args.corpus, **_sweep_cfg_kw(args))
+        enc_cfg, enc_params, fused_cfg = _build_fused_from_args(args, cfg)
+        if (args.suite == "noise" or args.multi_noise) and not args.noise_root:
+            raise ValueError("--suite noise / --multi-noise with --from-wav "
+                             "need --noise-root (NOISEX-92 bank)")
+        fused = dict(base_fused_cfg=fused_cfg, noise_root=args.noise_root,
+                     output_path=args.output, prefetch_depth=args.prefetch_depth,
+                     transfer_dtype=args.transfer_dtype, **common)
+        if args.multi_noise:
+            # every mechanism averaged over the injection grid
+            # (run_granular_ablations*.py semantics, injected on the device)
+            results = run_fused_multi_noise_suite(
+                cfg, pick(mechanisms), args.from_wav, enc_cfg, enc_params,
+                cells=parse_injection_cells(args.multi_noise), **fused)
+        else:
+            suite = pick(fused_noise_condition_experiments() if args.suite == "noise"
+                         else mechanisms)
+            results = run_fused_ablation_suite(cfg, suite, args.from_wav, enc_cfg,
+                                               enc_params, **fused)
+        return _failures_rc(results, "experiment(s)", "name")
+
+    if not (args.clean and args.noisy):
+        raise ValueError("--clean and --noisy are required "
+                         "(or use --from-wav for fused ablations)")
+    cfg = dad_preset(args.corpus, clean_data_dir=args.clean, noisy_data_dir=args.noisy,
+                     **_sweep_cfg_kw(args))
+    if args.multi_noise:
+        results = run_multi_noise_suite(cfg, pick(mechanisms), args.multi_noise.split(","),
+                                        output_path=args.output, **common)
+    else:
+        # with --suite noise, --noisy is the BASE of the offline
+        # `root1-{type}-{snr}db` trees (the reference's NOISY_DATA_DIR swaps)
+        suite = pick(noise_condition_experiments(args.noisy) if args.suite == "noise"
+                     else mechanisms)
+        results = run_ablation_suite(cfg, suite, output_path=args.output, **common)
+    return _failures_rc(results, "experiment(s)", "name")
+
+
+def _cmd_sensitivity(args):
+    from .configs import dad_preset
+    from .exp.sensitivity import run_fused_sensitivity_sweep, run_sensitivity_sweep
+
+    values = [float(x) for x in args.values.split(",")] if args.values else None
+    common = dict(values=values, fold=args.fold, output_dir=args.output_dir,
+                  device=args.device, trainer_kw={"resident": RESIDENT[args.resident]})
+    if args.from_wav:
+        cfg = dad_preset(args.corpus, **_sweep_cfg_kw(args))
+        enc_cfg, enc_params, fused_cfg = _build_fused_from_args(args, cfg)
+        results = run_fused_sensitivity_sweep(
+            cfg, args.knob, args.from_wav, enc_cfg, enc_params,
+            base_fused_cfg=fused_cfg, noise_root=args.noise_root,
+            prefetch_depth=args.prefetch_depth, transfer_dtype=args.transfer_dtype,
+            **common)
+    else:
+        if not (args.clean and args.noisy):
+            raise ValueError("--clean and --noisy are required "
+                             "(or use --from-wav for fused sweeps)")
+        cfg = dad_preset(args.corpus, clean_data_dir=args.clean, noisy_data_dir=args.noisy,
+                         **_sweep_cfg_kw(args))
+        results = run_sensitivity_sweep(cfg, args.knob, **common)
+    return _failures_rc(results, "sweep point(s)", "name")
+
+
+def _add_sweep_args(p) -> None:
+    """The flags ``ablation`` and ``sensitivity`` share: the feature stores,
+    the ``--from-wav`` mode's encoder and injection, the trainer's."""
+    p.add_argument("--corpus", choices=["iemocap", "casia", "emodb"], required=True)
+    p.add_argument("--clean", default=None, help="clean feature dir (feature-level mode)")
+    p.add_argument("--noisy", default=None,
+                   help="noisy feature dir (feature-level mode); for ablation "
+                        "--suite noise the BASE dir of the offline root1-{type}-{snr}db trees")
+    p.add_argument("--from-wav", default=None, metavar="MANIFEST_DIR",
+                   help="run fused from a clean wav manifest dir (injection on the "
+                        "device; replaces --clean/--noisy)")
+    p.add_argument("--checkpoint", default=None,
+                   help="emotion2vec encoder weights (--from-wav mode)")
+    p.add_argument("--encoder-dtype", default="bfloat16")
+    p.add_argument("--encoder-json", default=None,
+                   help="EncoderConfig overrides as inline JSON or a JSON file "
+                        "(--from-wav mode)")
+    p.add_argument("--snr", type=float, default=10.0, help="base injection SNR dB (fused)")
+    p.add_argument("--snr-choices", default=None,
+                   help="comma list; per-clip random SNR (fused multi-SNR)")
+    p.add_argument("--noise-root", default=None,
+                   help="NOISEX-92 5types dir (fused bank injection; required for "
+                        "ablation --suite noise)")
+    p.add_argument("--noise-mode", choices=["fixed", "random"], default="fixed")
+    p.add_argument("--noise-type", default="babble")
+    p.add_argument("--prefetch-depth", type=int, default=2)
+    p.add_argument("--transfer-dtype", default=None)
+    p.add_argument("--resident", choices=["auto", "on", "off"], default="auto",
+                   help="hold each experiment's training corpus on the device "
+                        "(both modes); auto does so when it fits 8 GiB")
+    p.add_argument("--warmup-epochs", type=int, default=None,
+                   help="override WARMUP_EPOCHS (and ECDA_START_EPOCH)")
+    p.add_argument("--batch-size", type=int, default=None)
+    p.add_argument("--bucket-batches", action="store_true",
+                   help="bucket-homogeneous training batches (opt-in deviation from "
+                        "the reference's batch composition)")
+    p.add_argument("--weights", default=None, help="pretrain .ckpt")
+    p.add_argument("--fold", type=int, default=0)
+    p.add_argument("--epochs", type=int, default=500)
+    p.add_argument("--device", default="cuda",
+                   help="cuda (default) or cpu; without a GPU, cuda fails")
+
+
+def _add_experiment_parsers(sub) -> None:
+    p = sub.add_parser("ablation", help="ablation suites (run_ablation_studies*.py)")
+    _add_sweep_args(p)
+    p.add_argument("--suite", choices=["standard", "granular", "noise"], default="standard")
+    p.add_argument("--multi-noise", default=None,
+                   help="average every suite experiment across noise conditions "
+                        "(run_granular_ablations*.py). Feature mode: comma list of "
+                        "noisy feature dirs; fused mode: 'grid' for the full "
+                        "injection grid, or a comma list of type@snr cells "
+                        "(e.g. babble@10,f16@0)")
+    p.add_argument("--experiments", default=None,
+                   help="comma-separated subset of the suite's experiment names")
+    p.add_argument("--output", default="ablation_results.json")
+    p.set_defaults(func=_cmd_ablation)
+
+    p = sub.add_parser("sensitivity", help="hyperparameter sensitivity sweep "
+                                           "(run_hyperparameter_sensitivity*.py)")
+    _add_sweep_args(p)
+    p.add_argument("--knob", required=True,
+                   help="e.g. WEIGHT_ECDA, DACP_CALIBRATION_STRENGTH_LAMBDA, "
+                        "ECDA_GAMMA_DELTA")
+    p.add_argument("--values", default=None, help="comma list; default grid")
+    p.add_argument("--output-dir", default="sensitivity_results")
+    p.set_defaults(func=_cmd_sensitivity)
+
+
+def _cmd_analyze(args):
+    if args.kind in ("disagreement", "bias", "dacp"):
+        from .analysis import (
+            analyze_confirmation_bias,
+            analyze_dacp_evolution,
+            analyze_disagreement,
+        )
+
+        fn = {"disagreement": analyze_disagreement, "bias": analyze_confirmation_bias,
+              "dacp": analyze_dacp_evolution}[args.kind]
+        print(fn(args.results_dir, args.out_dir))
+    elif args.kind == "distribution":
+        from .analysis import analyze_distribution
+        from .configs import CORPUS_PRESETS
+        from .data import load_feature_store
+
+        labels = dict(CORPUS_PRESETS[args.corpus]["labels"])
+        store = load_feature_store(args.feat_dir, labels)
+        print(analyze_distribution(store, list(labels), args.out_dir or "analysis"))
+    else:  # tsne
+        import torch
+
+        from .analysis import analyze_tsne
+        from .configs import dad_preset
+        from .data import load_feature_store
+        from .models.convert import (
+            load_pretrain_head_checkpoint,
+            load_torch_file,
+            torch_state_dict_to_ssrl,
+        )
+        from .models.heads import init_ssrl, load_pretrain_into_ssrl
+
+        cfg = dad_preset(args.corpus)
+        store = load_feature_store(args.feat_dir, cfg.label_map)
+        param_sets = {}
+        if args.weights_dad:
+            param_sets["dad"] = torch_state_dict_to_ssrl(load_torch_file(args.weights_dad)).student
+        if args.weights_pretrain:
+            # only the pre_net reaches the embedding, so any fresh init will do
+            _h, fresh = init_ssrl(torch.Generator().manual_seed(0), cfg.input_dim,
+                                  cfg.hidden_dim)
+            pre = load_pretrain_head_checkpoint(args.weights_pretrain)
+            param_sets["pretrain"] = load_pretrain_into_ssrl(fresh, pre).student
+        print(analyze_tsne(cfg, store, param_sets, args.out_dir or "analysis",
+                           device=args.device))
+    return 0
+
+
+def _add_analyze_parser(sub) -> None:
+    p = sub.add_parser("analyze", help="analyses of a results dir or a feature store")
+    p.add_argument("--kind", required=True,
+                   choices=["disagreement", "bias", "dacp", "distribution", "tsne"])
+    p.add_argument("--results-dir", default=None)
+    p.add_argument("--out-dir", default=None)
+    p.add_argument("--feat-dir", default=None, help="for distribution/tsne")
+    p.add_argument("--corpus", choices=["iemocap", "casia", "emodb"], default="iemocap")
+    p.add_argument("--weights-pretrain", default=None)
+    p.add_argument("--weights-dad", default=None)
+    p.add_argument("--device", default="cuda",
+                   help="tsne's embedding pass: cuda (default) or cpu")
+    p.set_defaults(func=_cmd_analyze)
 
 
 def _add_dad_parser(sub) -> None:
@@ -398,6 +670,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.set_defaults(func=_cmd_serve)
     _add_dad_parser(sub)
     _add_stage1_parsers(sub)
+    _add_pretrain_parser(sub)
+    _add_experiment_parsers(sub)
+    _add_analyze_parser(sub)
 
     for name in NOT_PORTED:
         sub.add_parser(name, add_help=False, help="not ported yet")

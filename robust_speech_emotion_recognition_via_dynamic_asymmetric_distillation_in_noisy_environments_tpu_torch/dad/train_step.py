@@ -168,6 +168,7 @@ class StepDraws(NamedTuple):
     inject: Optional[torch.Tensor] = None  # (B, T) standard normal (fused step)
     weak: Optional[torch.Tensor] = None  # (B, T', D) standard normal
     strong: Optional[StrongDraws] = None
+    bank_offsets: Optional[torch.Tensor] = None  # (B,) circular offsets into the bank (fused)
 
 
 def draw_feature_step(generator: Optional[torch.Generator], feats: torch.Tensor,

@@ -1,6 +1,7 @@
 from .metrics import (
     accuracy,
     balanced_accuracy,
+    classification_report_text,
     confusion_matrix,
     evaluate_domain,
     f1_scores,
@@ -21,6 +22,7 @@ __all__ = [
     "f1_scores",
     "precision_recall_fscore_support",
     "evaluate_domain",
+    "classification_report_text",
     "best_detailed_results",
     "final_test_report",
     "save_confusion_matrices",

@@ -6,13 +6,12 @@ sklearn's conventions exactly:
 - balanced_accuracy = mean recall over classes PRESENT in y_true
 - precision/recall/f1 with zero_division=0
 - weighted F1 weighted by support
-A copy of the JAX package's metrics (numpy only): ``evaluate_domain`` and
-what it calls.
+A copy of the JAX package's metrics (numpy only).
 """
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Sequence
 
 import numpy as np
 
@@ -87,3 +86,33 @@ def evaluate_domain(y_true, y_pred, num_classes: int) -> Dict:
         "confusion_matrix": confusion_matrix(y_true, y_pred, num_classes),
     }
 
+
+def classification_report_text(
+    y_true, y_pred, class_names: Sequence[str], digits: int = 4
+) -> str:
+    """Plain-text report in sklearn's classification_report layout."""
+    C = len(class_names)
+    prec, rec, f1, sup = precision_recall_fscore_support(y_true, y_pred, C)
+    width = max(max(len(c) for c in class_names), len("weighted avg"))
+    head = f"{'':>{width}} {'precision':>9} {'recall':>9} {'f1-score':>9} {'support':>9}\n"
+    lines = [head]
+    for i, name in enumerate(class_names):
+        lines.append(
+            f"{name:>{width}} {prec[i]:>9.{digits}f} {rec[i]:>9.{digits}f} "
+            f"{f1[i]:>9.{digits}f} {sup[i]:>9}\n"
+        )
+    total = sup.sum()
+    acc = accuracy(y_true, y_pred)
+    lines.append(f"\n{'accuracy':>{width}} {'':>9} {'':>9} {acc:>9.{digits}f} {total:>9}\n")
+    macro = (prec.mean(), rec.mean(), f1.mean())
+    w = sup / max(total, 1)
+    weighted = ((prec * w).sum(), (rec * w).sum(), (f1 * w).sum())
+    lines.append(
+        f"{'macro avg':>{width}} {macro[0]:>9.{digits}f} {macro[1]:>9.{digits}f} "
+        f"{macro[2]:>9.{digits}f} {total:>9}\n"
+    )
+    lines.append(
+        f"{'weighted avg':>{width}} {weighted[0]:>9.{digits}f} "
+        f"{weighted[1]:>9.{digits}f} {weighted[2]:>9.{digits}f} {total:>9}\n"
+    )
+    return "".join(lines)

@@ -15,7 +15,10 @@
   of two ``DADHead`` state dicts (``torch_state_dict_to_ssrl``,
   ``ssrl_to_torch_state_dict``, ``save_torch_file``).
 - pretrain-head checkpoints (``pre_net.*`` / ``post_net.*``) ->
-  ``PretrainHead`` state dicts (``load_pretrain_head_checkpoint``).
+  ``PretrainHead`` state dicts (``load_pretrain_head_checkpoint``); the
+  JAX package's ``PretrainHead`` params -> the same state dict
+  (``flax_pretrain_head_to_torch``); ``save_pretrain_head_checkpoint``
+  writes the file both packages' loaders read.
 - ``flax_train_state_to_torch``: a JAX ``DADTrainState`` (numpy leaves)
   -> the port's, optimizer and DACP state included, so both frameworks can
   start from one state.
@@ -242,6 +245,23 @@ def load_pretrain_head_checkpoint(path: str) -> Dict[str, torch.Tensor]:
     (f32 CPU tensors), the input of ``heads.load_pretrain_into_ssrl``."""
     sd = load_torch_file(path)
     return {k: sd[k].float() for k in _PRETRAIN_KEYS}
+
+
+def save_pretrain_head_checkpoint(params: Mapping[str, torch.Tensor], path: str) -> None:
+    """A ``PretrainHead`` state dict as the reference's pretrain checkpoint:
+    exactly its four keys, contiguous f32 CPU tensors."""
+    save_torch_file({k: params[k].detach().to("cpu", torch.float32).contiguous()
+                     for k in _PRETRAIN_KEYS}, path)
+
+
+def flax_pretrain_head_to_torch(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """The JAX package's ``PretrainHead`` params ({"params": {"pre_net":
+    {"kernel", "bias"}, "post_net": ...}}, numpy leaves) -> the port's
+    ``PretrainHead`` state dict (``pre_net.weight`` (hidden, input) ...)."""
+    out = flax_encoder_to_torch(params)
+    if sorted(out) != sorted(_PRETRAIN_KEYS):
+        raise ValueError(f"not a PretrainHead param tree: {sorted(out)}")
+    return out
 
 
 # ---------------------------------------------------------------------------

@@ -1,11 +1,13 @@
 """Classification heads and the teacher-student (SSRL) parameter holder.
 
 - ``PretrainHead``: Linear 768->256 -> ReLU -> masked mean pool -> Linear
-  256->C (checkpoint keys ``pre_net.*`` / ``post_net.*``).
+  256->C (checkpoint keys ``pre_net.*`` / ``post_net.*``), the supervised
+  pretrain stage's model (``init_pretrain_head``).
 - ``DADHead``: Linear 768->256 -> ReLU -> masked mean pool (``encoder``),
   then dropout + Linear 256->C (``classifier``). Its state dict keys
   (``encoder.pre_net.*``, ``classifier.fc_layer.*``) are the reference
-  checkpoint's with the ``student_``/``teacher_`` prefix removed.
+  checkpoint's with the ``student_``/``teacher_`` prefix removed;
+  ``embed`` gives the pooled embeddings alone.
 - ``SSRLState``: student and teacher ``DADHead`` state dicts. The teacher
   follows the student by EMA (``ema_update``).
 
@@ -97,6 +99,9 @@ class DADHead(nn.Module):
         emb = self.encoder(feats, padding_mask)
         return self.classifier(emb, deterministic=deterministic, generator=generator), emb
 
+    def embed(self, feats: torch.Tensor, padding_mask: torch.Tensor) -> torch.Tensor:
+        return self.encoder(feats, padding_mask)
+
 
 class SSRLState(NamedTuple):
     """Student/teacher ``DADHead`` state dicts."""
@@ -107,6 +112,39 @@ class SSRLState(NamedTuple):
 
 def _clone(params: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
     return {k: v.detach().clone() for k, v in params.items()}
+
+
+def _torch_linear_init(module: nn.Module, fan_in, generator: Optional[torch.Generator],
+                       device) -> Dict[str, torch.Tensor]:
+    """Every weight and bias of ``module`` (built on the meta device) drawn
+    as torch ``nn.Linear`` draws them, U(-1/sqrt(fan_in), 1/sqrt(fan_in)),
+    from ``generator`` in state-dict order; ``fan_in(name)`` gives a
+    parameter's fan-in. ``module`` is materialised on ``device`` with them."""
+    params = {}
+    draw_on = None if generator is None else generator.device
+    for name, p in module.state_dict().items():
+        bound = 1.0 / math.sqrt(fan_in(name))
+        u = torch.rand(p.shape, generator=generator, device=draw_on)
+        params[name] = ((u * 2.0 - 1.0) * bound).to(device)
+    module.to_empty(device=device or "cpu").load_state_dict(params)
+    return params
+
+
+def init_pretrain_head(
+    generator: Optional[torch.Generator] = None,
+    input_dim: int = 768,
+    hidden_dim: int = 256,
+    num_classes: int = 4,
+    device=None,
+) -> Tuple[PretrainHead, Dict[str, torch.Tensor]]:
+    """A ``PretrainHead`` on ``device`` and its state dict, drawn as
+    ``init_ssrl`` draws a ``DADHead`` (the same shapes in the same order)."""
+    with torch.device("meta"):
+        head = PretrainHead(input_dim, hidden_dim, num_classes)
+    params = _torch_linear_init(
+        head, lambda name: input_dim if name.startswith("pre_net.") else hidden_dim,
+        generator, device)
+    return head, params
 
 
 def init_ssrl(
@@ -124,15 +162,9 @@ def init_ssrl(
     order, and lives on ``device``."""
     with torch.device("meta"):
         head = DADHead(input_dim, hidden_dim, num_classes, dropout_rate)
-    student = {}
-    draw_on = None if generator is None else generator.device
-    for name, p in head.state_dict().items():
-        fan_in = input_dim if name.startswith("encoder.") else hidden_dim
-        bound = 1.0 / math.sqrt(fan_in)
-        u = torch.rand(p.shape, generator=generator, device=draw_on)
-        student[name] = ((u * 2.0 - 1.0) * bound).to(device)
-    head = head.to_empty(device=device or "cpu")
-    head.load_state_dict(student)
+    student = _torch_linear_init(
+        head, lambda name: input_dim if name.startswith("encoder.") else hidden_dim,
+        generator, device)
     return head, SSRLState(student=student, teacher=_clone(student))
 
 

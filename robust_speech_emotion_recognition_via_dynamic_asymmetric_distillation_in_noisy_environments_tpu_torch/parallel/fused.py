@@ -123,10 +123,12 @@ def validate_injection(cfg: FusedConfig) -> None:
 
 def inject_noise(cfg: FusedConfig, noisy_wav: torch.Tensor, wav_mask: torch.Tensor,
                  generator: Optional[torch.Generator], noise_bank=None,
-                 noise: Optional[torch.Tensor] = None) -> torch.Tensor:
+                 noise: Optional[torch.Tensor] = None,
+                 bank_offsets: Optional[torch.Tensor] = None) -> torch.Tensor:
     """On-device counterpart of the reference injectors: white noise or
     NOISEX bank mixing, at a fixed or per-clip SNR. ``noise`` supplies the
-    white noise's standard-normal draws."""
+    white noise's standard-normal draws, ``bank_offsets`` the bank mix's
+    circular offsets."""
     if cfg.inject_snr_choices:
         snrs = torch.tensor(cfg.inject_snr_choices, dtype=torch.float32,
                             device=noisy_wav.device)
@@ -141,6 +143,7 @@ def inject_noise(cfg: FusedConfig, noisy_wav: torch.Tensor, wav_mask: torch.Tens
             noisy_wav, ~wav_mask, noise_bank, snr, generator,
             noise_type=cfg.inject_noise_type,
             per_sample_type=cfg.inject_noise_bank_mode == "random",
+            offsets=bank_offsets,
         )
     return batch_add_white_noise(noisy_wav, ~wav_mask, snr, generator, noise=noise)
 
@@ -161,7 +164,8 @@ def build_fused_step(encoder: Emotion2vecEncoder, head: DADHead, tx: Optimizer,
              draws: Optional[StepDraws] = None):
         draws = draws or StepDraws()
         noisy_wav = inject_noise(cfg, noisy.wav, noisy.wav_mask, generator,
-                                 noise_bank, noise=draws.inject)
+                                 noise_bank, noise=draws.inject,
+                                 bank_offsets=draws.bank_offsets)
         if cfg.cache_clean_features:
             clean_feats, clean_fmask = clean.feats, clean.frame_mask
         else:

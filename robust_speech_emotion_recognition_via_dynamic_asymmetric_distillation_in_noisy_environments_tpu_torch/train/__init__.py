@@ -1,3 +1,6 @@
+from .early_stopping import EarlyStopper
+from .schedules import LRScheduler, make_lr_scheduler
+from .pretrain import pretrain_fold, train_with_early_stopping
 from .dad_trainer import CrossDomainTrainer, extract_noise_info, run_cv
 from .fused_trainer import (
     FusedCrossDomainTrainer,
@@ -8,6 +11,11 @@ from .fused_trainer import (
 )
 
 __all__ = [
+    "EarlyStopper",
+    "LRScheduler",
+    "make_lr_scheduler",
+    "pretrain_fold",
+    "train_with_early_stopping",
     "CrossDomainTrainer",
     "extract_noise_info",
     "run_cv",

@@ -23,10 +23,12 @@ METRIC_TOL; parameters of the best .pth STATE_TOL (atol 2e-6 / rtol 1e-4,
 ``tests/test_torch_trainer.py``'s). Accuracies, disagreement rates, the
 best epoch and the layered results path are compared exactly.
 
-Bank injection (NOISEX mode) draws noise types and offsets that
-``StepDraws`` does not carry: it is held to the JAX package by its bank
-(bit-equal), its fixed domain (bit-equal, ``tests/test_torch_wavdata.py``)
-and a trainer run whose losses are finite.
+Bank injection in root2 mode (a NOISEX type drawn a clip) draws noise
+types that ``StepDraws`` does not carry: it is held to the JAX package by
+its bank (bit-equal), its fixed domain (bit-equal,
+``tests/test_torch_wavdata.py``) and a trainer run whose losses are finite.
+Root1 mode (one type) is fed the JAX offsets through ``bank_offsets`` in
+``tests/test_torch_experiments.py``.
 """
 
 import json

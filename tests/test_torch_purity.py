@@ -36,6 +36,9 @@ print("LOADED", bad)
 
 def test_port_and_chip_smoke_import_without_jax():
     assert len(PORT_MODULES) > 15
+    for sub in ("exp", "analysis", "train"):  # the JAX-free modules kept as copies
+        assert f"{PORT_PKG}.{sub}" in PORT_MODULES
+        assert any(m.startswith(f"{PORT_PKG}.{sub}.") for m in PORT_MODULES), sub
     env = dict(os.environ, PYTHONPATH=str(REPO) + os.pathsep + os.environ.get("PYTHONPATH", ""))
     res = subprocess.run(
         [sys.executable, "-c", _PROBE.format(jax_pkg=JAX_PKG), *PORT_MODULES, "chip_smoke"],
@@ -58,7 +61,8 @@ def test_port_sources_never_name_the_jax_package():
 
 
 @pytest.mark.parametrize("entry", ["FeatureExtractor", "EmotionPredictor", "cli",
-                                   "init_fused", "norm_probe"])
+                                   "init_fused", "norm_probe", "pretrain", "experiment",
+                                   "tsne"])
 def test_entry_points_without_device_raise_without_cuda(monkeypatch, entry):
     from robust_speech_emotion_recognition_via_dynamic_asymmetric_distillation_in_noisy_environments_tpu_torch import (
         cli,
@@ -66,6 +70,7 @@ def test_entry_points_without_device_raise_without_cuda(monkeypatch, entry):
     from robust_speech_emotion_recognition_via_dynamic_asymmetric_distillation_in_noisy_environments_tpu_torch.configs import (
         EncoderConfig,
         dad_preset,
+        pretrain_preset,
     )
     from robust_speech_emotion_recognition_via_dynamic_asymmetric_distillation_in_noisy_environments_tpu_torch.eval.serving import (
         EmotionPredictor,
@@ -93,6 +98,24 @@ def test_entry_points_without_device_raise_without_cuda(monkeypatch, entry):
             FeatureExtractor(EncoderConfig(embed_dim=16, num_heads=2), {})
         elif entry == "EmotionPredictor":
             EmotionPredictor(dad_preset("iemocap"), SSRLState({}, {}))
+        elif entry == "pretrain":
+            from robust_speech_emotion_recognition_via_dynamic_asymmetric_distillation_in_noisy_environments_tpu_torch.train.pretrain import (
+                pretrain_fold,
+            )
+
+            pretrain_fold(pretrain_preset("iemocap"), None, 0)
+        elif entry == "experiment":
+            from robust_speech_emotion_recognition_via_dynamic_asymmetric_distillation_in_noisy_environments_tpu_torch.exp import (
+                run_single_experiment,
+            )
+
+            run_single_experiment(dad_preset("iemocap"), "x", {})
+        elif entry == "tsne":
+            from robust_speech_emotion_recognition_via_dynamic_asymmetric_distillation_in_noisy_environments_tpu_torch.analysis.tsne import (
+                make_embedder,
+            )
+
+            make_embedder(dad_preset("iemocap"), {})
         else:
             parser = cli.build_parser()
             args = parser.parse_args(["serve", "--weights", "unused.pth"])

@@ -223,7 +223,7 @@ def test_cli_serve_and_unported_commands(pair, tmp_path, monkeypatch, capsys):
     for name, value in tp.ssrl.student.items():
         assert torch.equal(predictor.ssrl.student[name], value)
 
-    assert cli.main(["pretrain", "--corpus", "x"]) == 2
+    assert cli.main(["d2v-pretrain", "--corpus", "x"]) == 2
     assert "not ported" in capsys.readouterr().err
     with pytest.raises(SystemExit):
         cli.main(["serve", "--weights", str(weights), "--bogus"])
