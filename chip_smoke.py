@@ -3,8 +3,8 @@
 serving path, the fused-norm probe, the conv front end through its kernel,
 the fused extract+train step, the feature-level trainer, the fused
 wav->train trainer, stage 1 (manifest, injection, extraction) with
-inference, and the supervised pretrain, the experiment harness and the
-analyses.
+inference, the supervised pretrain, the experiment harness and the
+analyses, and d2v self-supervised pretraining of the encoder.
 
     python3 chip_smoke.py
 
@@ -152,7 +152,28 @@ Phases (any failure raises and the script exits non-zero without a result):
     the attention launches, the sensitivity's seconds per point and the
     seconds per analysis. ``--only experiments`` builds attention.cu and
     runs phases 1, 2, 9, 10 and 11.
-12. prints the ``nvidia-smi`` line, a ``kernels`` JSON line (all four
+12. d2v pretraining, on phase 9's corpus and checkpoint: ``cli
+    d2v-pretrain`` at the JAX defaults and full width (bf16, B 16, 10 s
+    crops, clone_batch 8, span masks at 0.7, ``--init-checkpoint`` phase
+    9's, resident auto) for 40 steps (warmup 10) over Sessions 1-4,
+    validating every 20 steps on Session 5: rc 0, the resident corpus,
+    no kernel launched by the differentiated step, a finite history
+    without a collapse, the last loss under step 1's, the best state and
+    both encoder exports loading. Then 3-step agreement runs over 48 clips
+    from one init: two identical runs (the card's drift), resident vs
+    ``--resident off``, ``--scan-chunk 2`` vs per-step, ``d2v-pack`` +
+    ``--binarized`` vs the wav manifest, ``--remat`` vs none (dropout on),
+    each within 4x that drift; 2 steps on the card and the CPU from one
+    init and the same draws (f32, B 2, 2 s crops); the exported encoder
+    extracting Session 5 through the attention kernel (12 launches a
+    batch of 16) against plain attention. Prints ms a step (median and
+    range of steps 5-39 less the profiled one and those followed by a
+    validation or a checkpoint), student tokens/s, the derived FLOPs a step and
+    their share of the bf16 peak, a torch.profiler breakdown of step 30
+    with the device's busy share, peak device GB, startup (decode,
+    resident commit), validation and checkpoint-write seconds.
+    ``--only d2v`` builds attention.cu and runs phases 1, 2, 9 and 12.
+13. prints the ``nvidia-smi`` line, a ``kernels`` JSON line (all four
     kernels; the conv entry sums its seven layers' numbers), then the
     result line ``{"ok": true, "device": {...}}`` last.
 """
@@ -189,6 +210,7 @@ from robust_speech_emotion_recognition_via_dynamic_asymmetric_distillation_in_no
     tsne as tsne_mod,
 )
 from robust_speech_emotion_recognition_via_dynamic_asymmetric_distillation_in_noisy_environments_tpu_torch.configs import (
+    D2vPretrainConfig,
     EncoderConfig,
     dad_preset,
     pretrain_preset,
@@ -240,6 +262,20 @@ from robust_speech_emotion_recognition_via_dynamic_asymmetric_distillation_in_no
     load_torch_file,
     torch_state_dict_to_ssrl,
 )
+from robust_speech_emotion_recognition_via_dynamic_asymmetric_distillation_in_noisy_environments_tpu_torch.models import (
+    d2v_pretrain as d2v_models,
+)
+from robust_speech_emotion_recognition_via_dynamic_asymmetric_distillation_in_noisy_environments_tpu_torch.models.d2v_masking import (
+    span_mask_counts,
+    span_mask_uniforms,
+)
+from robust_speech_emotion_recognition_via_dynamic_asymmetric_distillation_in_noisy_environments_tpu_torch.models.d2v_pretrain import (
+    D2vDraws,
+    conv_frames,
+    init_d2v_state,
+    init_ema_blocks,
+    make_d2v_train_step,
+)
 from robust_speech_emotion_recognition_via_dynamic_asymmetric_distillation_in_noisy_environments_tpu_torch.models.emotion2vec import (
     normalize_wav,
 )
@@ -254,6 +290,7 @@ from robust_speech_emotion_recognition_via_dynamic_asymmetric_distillation_in_no
 )
 from robust_speech_emotion_recognition_via_dynamic_asymmetric_distillation_in_noisy_environments_tpu_torch.models.layers import (
     ConvFeatureExtractor,
+    draw_keep,
 )
 from robust_speech_emotion_recognition_via_dynamic_asymmetric_distillation_in_noisy_environments_tpu_torch.ops import (
     attention,
@@ -281,6 +318,7 @@ from robust_speech_emotion_recognition_via_dynamic_asymmetric_distillation_in_no
 from robust_speech_emotion_recognition_via_dynamic_asymmetric_distillation_in_noisy_environments_tpu_torch.train import (
     CrossDomainTrainer,
     FusedCrossDomainTrainer,
+    d2v_pretrain as d2v_train_mod,
     dad_trainer,
     fused_trainer,
     pretrain as pretrain_mod,
@@ -2782,11 +2820,422 @@ def run_experiments(root: str, manifests: str, ckpt: str, stores: dict) -> dict:
                 sensitivity=sens, analyze_s=analyze, embedding=embed, logmel=logmel)
 
 
-def run_stage1_and_fused(only_fused: bool = False, experiments: bool = True) -> tuple:
-    """Phases 9-11 in one directory: the raw IEMOCAP-layout corpus and
+# phase 12, d2v pretraining at the JAX defaults and full width (bf16,
+# B 16, 10 s crops, clone_batch 8, span masks at 0.7), cut in steps only:
+# 40 steps with a 10-step warmup, validation every 20 steps on Session 5
+D2V_STEPS, D2V_WARMUP, D2V_VALID_EVERY, D2V_CKPT_EVERY = 40, 10, 20, 20
+D2V_PROFILE_STEP = 30  # the step profiled with torch.profiler (its spacing left out)
+# the agreement runs: 3 steps from one init over 48 clips of Sessions 1-4.
+# The card's backward is not bitwise deterministic (scatter-adds by atomics
+# in the gathers' backward, cuDNN's weight gradients), so each pair is held
+# within D2V_DRIFT_FACTOR x the drift between two identical runs of the same
+# call (and reported bit-equal where it is)
+D2V_AGREE_STEPS, D2V_AGREE_CLIPS, D2V_DRIFT_FACTOR = 3, 48, 4.0
+D2V_HIST_KEYS = ("loss", "d2v_loss", "cls_loss", "target_var", "pred_var")
+# card vs CPU: f32, B 2, 2 s crops, clone_batch 2, encoder dropout off (the
+# CUDA and CPU generators draw different streams), the masks, mask tokens
+# and decoder-input dropout fed as D2vDraws; phase 11's pretrain criterion.
+# A key projection's bias has no gradient (softmax ignores a constant per
+# query), so Adam turns rounding noise there into steps of about lr: those
+# slices are held to 2 lr a step instead
+D2V_CPU_CROP, D2V_CPU_B, D2V_CPU_CLONE, D2V_CPU_STEPS = 32000, 2, 2, 2
+
+
+def write_d2v_manifests(manifests: str, out: str) -> dict:
+    """The d2v phase's manifests from phase 10's: ``full`` (train.tsv:
+    Sessions 1-4, valid.tsv: Session 5) and ``small`` (train.tsv: the first
+    D2V_AGREE_CLIPS clips of Sessions 1-4 that the d2v dataset keeps, 2 s
+    or longer)."""
+    root, files = read_manifest(manifests)
+    train = [(r, n) for r, n in files if "Ses05" not in r]
+    valid = [(r, n) for r, n in files if "Ses05" in r]
+    min_n = D2vPretrainConfig().min_sample_size
+    small = [(r, n) for r, n in train if n >= min_n][:D2V_AGREE_CLIPS]
+    dirs = {}
+    for name, splits in (("full", {"train": train, "valid": valid}), ("small", {"train": small})):
+        d = dirs[name] = f"{out}/{name}"
+        os.makedirs(d)
+        for split, rows in splits.items():
+            with open(f"{d}/{split}.tsv", "w") as f:
+                f.write(root + "\n" + "".join(f"{r}\t{n}\n" for r, n in rows))
+    return dict(dirs, train_clips=len(train), valid_clips=len(valid), valid_files=valid,
+                root=root)
+
+
+def d2v_step_flops(cfg: EncoderConfig, pcfg, batch: int, frames: int, keep: int) -> dict:
+    """Matmul and convolution FLOPs of one d2v update, derived from the
+    shapes (2 per multiply-add; elementwise work not counted): the conv
+    front end and projection once per clip, forward and backward (x3); the
+    teacher's positional conv and blocks forward only (x1) over every frame
+    of B clips; the student's positional conv (all frames), blocks (the kept
+    tokens) and decoder (all frames) over B x clone_batch rows, x3."""
+    e, h = cfg.embed_dim, int(cfg.embed_dim * cfg.mlp_ratio)
+    rows = batch * pcfg.clone_batch
+    n, c_in, front = pcfg.crop_size, 1, 0.0
+    for dim, k, s in cfg.conv_feature_layers:
+        n = (n - k) // s + 1
+        front += 2.0 * batch * n * dim * c_in * k
+        c_in = dim
+    front += 2.0 * batch * frames * c_in * e
+    kpos = max(3, cfg.conv_pos_width // cfg.conv_pos_depth)
+    pos = 2.0 * frames * e * (e // cfg.conv_pos_groups) * kpos * cfg.conv_pos_depth
+
+    def blocks(tokens_per_row: int) -> float:
+        dense = 2.0 * (e * 3 * e + e * e + 2 * e * h)
+        attn = 2.0 * 2 * tokens_per_row * e
+        return tokens_per_row * (dense + attn) * (cfg.prenet_depth + cfg.depth)
+
+    dc = pcfg.decoder
+    dec, c = 0.0, e
+    for _ in range(dc.decoder_layers):
+        dec += 2.0 * frames * dc.decoder_dim * (c // dc.decoder_groups) * dc.decoder_kernel
+        c = dc.decoder_dim
+    dec += 2.0 * frames * c * e
+    teacher = batch * (pos + blocks(frames))
+    student = rows * (pos + blocks(keep) + dec)
+    total = 3 * front + teacher + 3 * student
+    return dict(total=total, front_end=3 * front, teacher=teacher, student=3 * student)
+
+
+class D2vProbe:
+    """Measures ``cli d2v-pretrain`` from outside: a CUDA event recorded
+    before every train step (their spacing is the device's time a step,
+    idle gaps included), the host time of the first step, a torch.profiler
+    breakdown of step D2V_PROFILE_STEP, the host seconds of each
+    validation pass (the valid dataset's epoch, which ends in a host read
+    of every batch's loss), of each checkpoint write, of the corpus decode
+    and of its commit to the card. Undone on exit."""
+
+    def __init__(self, profile: bool = False):
+        self.profile = profile
+        self.events, self.first_step_t, self.prof = [], None, None
+        self.valid_s, self.ckpt_s, self.startup = [], [], {}
+
+    def __enter__(self) -> "D2vProbe":
+        probe = self
+        self._saved = (d2v_models.make_d2v_train_step, d2v_train_mod.WavCropDataset.batches,
+                       d2v_train_mod.save_train_state, d2v_train_mod.WavCropDataset.load_all_audio,
+                       resident_mod.resident_from_flat)
+        make, batches, save, load_all, commit = self._saved
+
+        def make_probed(*args, **kwargs):
+            step = make(*args, **kwargs)
+
+            def timed(*a, **kw):
+                if probe.first_step_t is None:
+                    probe.first_step_t = time.perf_counter()
+                event = torch.cuda.Event(enable_timing=True)
+                event.record()
+                probe.events.append(event)
+                if probe.profile and len(probe.events) == D2V_PROFILE_STEP:
+                    out = []
+                    probe.prof = profile_step(lambda: out.append(step(*a, **kw)))
+                    return out[0]
+                return step(*a, **kw)
+
+            return timed
+
+        def timed_batches(ds, *a, **kw):
+            t0 = time.perf_counter()
+            yield from batches(ds, *a, **kw)
+            probe.valid_s.append(time.perf_counter() - t0)
+
+        def timed_save(*a, **kw):
+            t0 = time.perf_counter()
+            save(*a, **kw)
+            probe.ckpt_s.append((os.path.basename(a[0]), time.perf_counter() - t0))
+
+        def timed_load_all(ds):
+            t0 = time.perf_counter()
+            out = load_all(ds)
+            probe.startup["decode_s"] = time.perf_counter() - t0
+            return out
+
+        def timed_commit(*a, **kw):
+            t0 = time.perf_counter()
+            out = commit(*a, **kw)
+            torch.cuda.synchronize()
+            probe.startup["resident_commit_s"] = time.perf_counter() - t0
+            probe.startup["resident_mb"] = out.flat.nbytes / 1e6
+            return out
+
+        d2v_models.make_d2v_train_step = make_probed
+        d2v_train_mod.WavCropDataset.batches = timed_batches
+        d2v_train_mod.save_train_state = timed_save
+        d2v_train_mod.WavCropDataset.load_all_audio = timed_load_all
+        resident_mod.resident_from_flat = timed_commit
+        return self
+
+    def __exit__(self, *exc) -> None:
+        (d2v_models.make_d2v_train_step, d2v_train_mod.WavCropDataset.batches,
+         d2v_train_mod.save_train_state, d2v_train_mod.WavCropDataset.load_all_audio,
+         resident_mod.resident_from_flat) = self._saved
+
+    def step_ms(self) -> list:
+        """Spacing of consecutive step events: step i's entry is the time
+        from step i's start to step i+1's (1-based)."""
+        return [a.elapsed_time(b) for a, b in zip(self.events, self.events[1:])]
+
+
+def d2v_history(save_dir: str) -> tuple:
+    with open(f"{save_dir}/d2v_training_history.json") as f:
+        hist = json.load(f)
+    steps = [e for e in hist if "loss" in e]
+    valid = [e for e in hist if "valid_loss" in e]
+    return steps, valid
+
+
+def run_d2v_main(dirs: dict, ckpt: str, out: str) -> dict:
+    """``cli d2v-pretrain`` at the JAX defaults, full width, resident auto,
+    from phase 9's checkpoint; its checks and measures."""
+    cfg = EncoderConfig()  # the d2v default: bf16, plain attention (the kernel is forward-only)
+    pcfg = D2vPretrainConfig()
+    argv = ["d2v-pretrain", "--manifests", dirs["full"], "--save-dir", out, "--init-checkpoint",
+            ckpt, "--steps", str(D2V_STEPS), "--warmup-steps", str(D2V_WARMUP),
+            "--valid-manifests", dirs["full"], "--valid-every", str(D2V_VALID_EVERY),
+            "--log-every", "1", "--checkpoint-every", str(D2V_CKPT_EVERY)]
+    gc.collect()
+    torch.cuda.empty_cache()
+    zero_kernel_launches()
+    torch.cuda.reset_peak_memory_stats()
+    held_gb = torch.cuda.memory_allocated() / 1e9  # earlier phases' tensors, in the peak
+    with D2vProbe(profile=True) as probe:
+        t0 = time.perf_counter()
+        rc = cli.main(argv)
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    launches = kernel_launches()
+    if rc != 0:
+        raise AssertionError(f"cli d2v-pretrain returned {rc}")
+    if any(launches.values()):
+        raise AssertionError(f"d2v training launched a kernel: {launches} (the attention "
+                             "kernel is forward-only and must stay off a differentiated step)")
+    if "resident_mb" not in probe.startup:
+        raise AssertionError("--resident auto did not engage the resident corpus")
+    steps, valid = d2v_history(out)
+    if [e["step"] for e in steps] != list(range(1, D2V_STEPS + 1)):
+        raise AssertionError(f"history steps {[e['step'] for e in steps]}: the run stopped early "
+                             "(a collapse guard fired?)")
+    vals = np.array([[e[k] for k in D2V_HIST_KEYS] for e in steps] + [[e["valid_loss"]] * 5
+                                                                      for e in valid])
+    if not np.isfinite(vals).all():
+        raise AssertionError("non-finite d2v history")
+    if any(e["target_var"] < pcfg.min_target_var or e["pred_var"] < pcfg.min_pred_var
+           for e in steps):
+        raise AssertionError("a collapse guard's statistic fell under its limit")
+    if not steps[-1]["loss"] < steps[0]["loss"]:
+        raise AssertionError(f"loss did not fall: step 1 {steps[0]['loss']:.4f}, step "
+                             f"{D2V_STEPS} {steps[-1]['loss']:.4f}")
+    if [e["step"] for e in valid] != list(range(D2V_VALID_EVERY, D2V_STEPS + 1, D2V_VALID_EVERY)):
+        raise AssertionError(f"validation at steps {[e['step'] for e in valid]}")
+    best = d2v_train_mod.load_pretrained_encoder(out, cfg, "cuda")
+    best.load_state_dict(torch.load(f"{out}/encoder_params_best.pt", map_location="cuda",
+                                    weights_only=True))
+    del best
+    # steps 5-39 by their spacing to the next step's event, less the
+    # profiled step and the steps followed by a validation or a checkpoint
+    ms = probe.step_ms()
+    busy = {D2V_PROFILE_STEP} | set(range(D2V_VALID_EVERY, D2V_STEPS, D2V_VALID_EVERY)) | set(
+        range(D2V_CKPT_EVERY, D2V_STEPS, D2V_CKPT_EVERY))
+    kept = [m for i, m in enumerate(ms, start=1) if i >= 5 and i not in busy]
+    frames = conv_frames(pcfg.crop_size, cfg.conv_feature_layers)
+    n_masked = span_mask_counts(frames, pcfg.mask_prob, pcfg.mask_length)[1]
+    keep = frames - n_masked
+    flops = d2v_step_flops(cfg, pcfg, pcfg.batch_size, frames, keep)
+    median = float(np.median(kept))
+    info = dict(
+        step_ms_median=median, step_ms_min=min(kept), step_ms_max=max(kept), steps_timed=len(kept),
+        student_tokens_per_step=pcfg.batch_size * pcfg.clone_batch * keep,
+        student_tokens_per_s=pcfg.batch_size * pcfg.clone_batch * keep / (median / 1e3),
+        teacher_frames_per_step=pcfg.batch_size * frames,
+        flops_per_step_derived=flops,
+        flops_share_of_bf16_peak=flops["total"] / (median / 1e3) / PEAK_FLOPS[torch.bfloat16],
+        peak_device_gb=peak_gb, held_before_gb=held_gb,
+        startup_s=probe.first_step_t - t0, **probe.startup,
+        valid_pass_s=probe.valid_s, checkpoint_write_s=probe.ckpt_s, run_s=run_s,
+        loss_first=steps[0]["loss"], loss_last=steps[-1]["loss"],
+        valid_loss=[e["valid_loss"] for e in valid],
+        target_var_min=min(e["target_var"] for e in steps),
+        pred_var_min=min(e["pred_var"] for e in steps),
+    )
+    print("d2v: main run " + json.dumps(info), flush=True)
+    print("d2v: profile of step " + str(D2V_PROFILE_STEP) + " " + json.dumps(probe.prof),
+          flush=True)
+    return info
+
+
+def d2v_agree_run(name: str, manifests: str, ckpt: str, root: str, extra: list) -> dict:
+    out = f"{root}/agree/{name}"
+    argv = ["d2v-pretrain", "--manifests", manifests, "--save-dir", out, "--init-checkpoint",
+            ckpt, "--steps", str(D2V_AGREE_STEPS), "--warmup-steps", "1", "--log-every", "1",
+            "--checkpoint-every", "0", *extra]
+    with D2vProbe() as probe:
+        sec = timed_cli(argv)
+    steps, _ = d2v_history(out)
+    if [e["step"] for e in steps] != list(range(1, D2V_AGREE_STEPS + 1)):
+        raise AssertionError(f"agreement run {name}: history steps {[e['step'] for e in steps]}")
+    return dict(hist=np.array([[e[k] for k in D2V_HIST_KEYS] for e in steps], np.float64),
+                params=torch.load(f"{out}/encoder_params.pt", weights_only=True),
+                resident="resident_mb" in probe.startup, seconds=sec)
+
+
+def d2v_diff(a: dict, b: dict) -> dict:
+    return dict(history=float(np.abs(a["hist"] - b["hist"]).max()),
+                params=max(float((a["params"][k].double() - b["params"][k].double()).abs().max())
+                           for k in a["params"]))
+
+
+def run_d2v_agreement(dirs: dict, ckpt: str, root: str) -> dict:
+    """Two identical runs (the drift), then resident vs streamed,
+    --scan-chunk 2 vs per-step, d2v-pack + --binarized vs the wav manifest
+    and --remat vs none (dropout on: the default rates), each over 3 steps
+    from one init."""
+    small = dirs["small"]
+    packed = f"{root}/agree/packed"
+    pack_s = timed_cli(["d2v-pack", "--manifests", small, "--out-dirs", packed])
+    runs = {
+        "resident": d2v_agree_run("resident", small, ckpt, root, []),
+        "resident_again": d2v_agree_run("resident_again", small, ckpt, root, []),
+        "streamed": d2v_agree_run("streamed", small, ckpt, root, ["--resident", "off"]),
+        "chunked": d2v_agree_run("chunked", small, ckpt, root, ["--scan-chunk", "2"]),
+        "packed": d2v_agree_run("packed", packed, ckpt, root,
+                                ["--binarized", "--resident", "off"]),
+        "remat": d2v_agree_run("remat", small, ckpt, root, ["--remat"]),
+    }
+    if not (runs["resident"]["resident"] and runs["remat"]["resident"]) or any(
+            runs[n]["resident"] for n in ("streamed", "chunked", "packed")):
+        raise AssertionError("agreement runs: the resident corpus engaged where it should "
+                             "not, or not where it should")
+    drift = d2v_diff(runs["resident"], runs["resident_again"])
+    tol = {k: D2V_DRIFT_FACTOR * v for k, v in drift.items()}
+    pairs = {"resident vs streamed": ("resident", "streamed"),
+             "scan-chunk 2 vs per-step": ("chunked", "streamed"),
+             "packed vs wav": ("packed", "streamed"),
+             "remat vs none": ("remat", "resident")}
+    out = dict(drift=drift, tolerance=tol, pack_s=pack_s,
+               seconds={n: r["seconds"] for n, r in runs.items()})
+    for what, (a, b) in pairs.items():
+        d = d2v_diff(runs[a], runs[b])
+        d["bit_equal"] = d["history"] == 0.0 and d["params"] == 0.0
+        out[what] = d
+        if not all(d[k] <= tol[k] for k in tol):
+            raise AssertionError(f"d2v {what}: {d} beyond {D2V_DRIFT_FACTOR} x the drift of "
+                                 f"two identical runs {drift}")
+    print("d2v: agreement over 3 steps " + json.dumps(out), flush=True)
+    return out
+
+
+def d2v_card_against_cpu(small: str, ckpt: str) -> dict:
+    """2 steps on the card and on the CPU from one init with the same
+    batch and the same draws; losses and parameters within
+    PRETRAIN_CARD_CPU_TOL (key-projection biases within 2 lr a step)."""
+    cfg = EncoderConfig(dtype="float32", encoder_dropout=0.0, attention_dropout=0.0,
+                        post_mlp_drop=0.0)
+    pcfg = D2vPretrainConfig(batch_size=D2V_CPU_B, crop_size=D2V_CPU_CROP,
+                             clone_batch=D2V_CPU_CLONE, max_steps=D2V_CPU_STEPS, warmup_steps=1)
+    model_c, tx_c, st = init_d2v_state(cfg, pcfg, torch.Generator().manual_seed(0), "cpu")
+    params = {**st.params, **load_emotion2vec_checkpoint(ckpt, cfg)}
+    st_c = st._replace(params=params, ema_blocks=init_ema_blocks(params, cfg, pcfg))
+    model_g, tx_g, _ = init_d2v_state(cfg, pcfg, None, "cuda")
+    st_g = d2v_train_mod.to_device(st_c, torch.device("cuda"))
+    wav, pad = next(d2v_train_mod.WavCropDataset([small], pcfg).batches(0, D2V_CPU_B))
+    rows = D2V_CPU_B * D2V_CPU_CLONE
+    frames = conv_frames(pcfg.crop_size, cfg.conv_feature_layers)
+    n_masked = span_mask_counts(frames, pcfg.mask_prob, pcfg.mask_length)[1]
+    gen = torch.Generator().manual_seed(1)
+    step_c, step_g = make_d2v_train_step(model_c, tx_c), make_d2v_train_step(model_g, tx_g)
+    losses = []
+    t0 = time.perf_counter()
+    for _ in range(D2V_CPU_STEPS):
+        draws = D2vDraws(
+            mask=span_mask_uniforms(rows, frames, pcfg.mask_length, gen),
+            din=draw_keep((rows, frames - n_masked, cfg.embed_dim), pcfg.decoder.input_dropout,
+                          gen, "cpu"),
+            dtok=torch.randn((rows, n_masked, cfg.embed_dim), generator=gen))
+        st_c, m_c = step_c(st_c, torch.from_numpy(wav), torch.from_numpy(pad), None, draws)
+        st_g, m_g = step_g(st_g, torch.from_numpy(wav).cuda(), torch.from_numpy(pad).cuda(), None,
+                           d2v_train_mod.to_device(draws, torch.device("cuda")))
+        losses.append((float(m_g["loss"]), float(m_c["loss"])))
+    cpu_s = time.perf_counter() - t0
+    tol = PRETRAIN_CARD_CPU_TOL
+    bad = [(g, c) for g, c in losses if not close(g, c, tol)]
+    lr_bound = 2 * pcfg.learning_rate * D2V_CPU_STEPS
+    worst, worst_kbias = 0.0, 0.0
+    for k, want in st_c.params.items():
+        got = st_g.params[k].cpu()
+        excess = ((got - want).abs() - tol["atol"] - tol["rtol"] * want.abs())
+        if k.endswith("attn.qkv.bias"):  # the key slice: no gradient, Adam's noise steps
+            e = cfg.embed_dim
+            worst_kbias = max(worst_kbias, float((got - want)[e:2 * e].abs().max()))
+            excess = torch.cat([excess[:e], excess[2 * e:]])
+        worst = max(worst, float(excess.max()))
+    out = dict(losses_card_cpu=losses, param_excess_over_tol=worst,
+               key_bias_max_abs_diff=worst_kbias, key_bias_bound=lr_bound,
+               cpu_and_card_seconds=cpu_s)
+    if bad or worst > 0 or worst_kbias > lr_bound:
+        raise AssertionError(f"d2v card vs CPU: {out}")
+    print("d2v: card vs CPU, 2 steps " + json.dumps(out), flush=True)
+    return out
+
+
+def d2v_downstream(out: str, valid_files: list, root: str) -> dict:
+    """The pretrained encoder (``load_pretrained_encoder``) extracting the
+    Session 5 clips through the attention kernel (12 launches a batch of
+    16), then the same weights through plain attention: each clip within
+    FEAT_REL_TOL_BF16 (phase 9's limit)."""
+    train_cfg = EncoderConfig()
+    sd = d2v_train_mod.load_pretrained_encoder(out, train_cfg, "cuda").state_dict()
+    clips = [read_wav(os.path.join(root, rel))[0].astype(np.float32) for rel, _n in valid_files]
+    kern = FeatureExtractor(dataclasses.replace(train_cfg, use_flash_attention=True), sd,
+                            batch_size=EXTRACT_BATCH)
+    zero_kernel_launches()
+    t0 = time.perf_counter()
+    feats_k = kern.extract_clips(clips)
+    kern_s = time.perf_counter() - t0
+    launches = check_attention_launches("d2v downstream extraction", len(clips))
+    del kern
+    plain = FeatureExtractor(train_cfg, sd, batch_size=EXTRACT_BATCH)
+    feats_p = plain.extract_clips(clips)
+    if attention.flash_attention.launches != launches:
+        raise AssertionError("the plain attention path launched the kernel")
+    rel = [float(np.linalg.norm(k - p) / np.linalg.norm(p)) for k, p in zip(feats_k, feats_p)]
+    if not all(np.isfinite(k).all() and k.shape == p.shape for k, p in zip(feats_k, feats_p)):
+        raise AssertionError("d2v downstream: non-finite or misshapen features")
+    info = dict(clips=len(clips), attention_launches=launches, kernel_pass_s=kern_s,
+                clip_rel_err_max=max(rel), clip_rel_err_median=float(np.median(rel)))
+    if not max(rel) <= FEAT_REL_TOL_BF16:
+        raise AssertionError(f"d2v downstream: a clip's relative error {max(rel):.3e} > "
+                             f"{FEAT_REL_TOL_BF16}: {info}")
+    del plain
+    torch.cuda.empty_cache()
+    print("d2v: downstream extraction, kernel vs plain " + json.dumps(info), flush=True)
+    return info
+
+
+def run_d2v(root: str, manifests: str, ckpt: str) -> dict:
+    """Phase 12: d2v pretraining on phase 9's corpus and checkpoint."""
+    t0 = time.perf_counter()
+    dirs = write_d2v_manifests(manifests, f"{root}/d2v_manifests")
+    print(f"d2v: {dirs['train_clips']} train clips (Sessions 1-4), {dirs['valid_clips']} valid "
+          "(Session 5)", flush=True)
+    out = f"{root}/d2v"
+    main_info = run_d2v_main(dirs, ckpt, out)
+    agree = run_d2v_agreement(dirs, ckpt, f"{root}/d2v_agree")
+    cpu = d2v_card_against_cpu(dirs["small"], ckpt)
+    down = d2v_downstream(out, dirs["valid_files"], dirs["root"])
+    print(f"d2v: phase 12 in {time.perf_counter() - t0:.1f} s", flush=True)
+    return dict(launches=down["attention_launches"], main=main_info, agreement=agree,
+                card_cpu=cpu, downstream=down)
+
+
+def run_stage1_and_fused(only_fused: bool = False, experiments: bool = True,
+                         d2v: bool = True) -> tuple:
+    """Phases 9-12 in one directory: the raw IEMOCAP-layout corpus and
     ``cli manifest`` (phase 10's first steps), the fused trainer on that
     manifest (phase 9), then unless ``only_fused`` the rest of phase 10,
-    and with ``experiments`` phase 11 on its stores."""
+    and with ``experiments`` phase 11 on its stores; with ``d2v`` phase 12
+    on phase 9's corpus and checkpoint."""
     with tempfile.TemporaryDirectory(prefix="dad_stage1_") as root, contextlib.chdir(root):
         t0 = time.perf_counter()
         corpus = write_iemocap_corpus(root, seed=0)
@@ -2803,11 +3252,12 @@ def run_stage1_and_fused(only_fused: bool = False, experiments: bool = True) -> 
         print(f"stage1: corpus {json.dumps(corpus)}, written in {write_s:.1f} s; cli manifest "
               f"{manifest_s:.2f} s", flush=True)
         fused = run_fused_trainer(root, manifests, ckpt)
-        if only_fused:
-            return fused, None, None
-        pre = run_preprocess(root, corpus, manifests, ckpt, fused["best_path"])
-        exp = run_experiments(root, manifests, ckpt, pre["stores"]) if experiments else None
-    return fused, pre, exp
+        pre = exp = None
+        if not only_fused:
+            pre = run_preprocess(root, corpus, manifests, ckpt, fused["best_path"])
+            exp = run_experiments(root, manifests, ckpt, pre["stores"]) if experiments else None
+        d2v_info = run_d2v(root, manifests, ckpt) if d2v else None
+    return fused, pre, exp, d2v_info
 
 
 T_START = time.perf_counter()
@@ -2816,7 +3266,7 @@ T_START = time.perf_counter()
 def parse_args(argv=None) -> argparse.Namespace:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--only", choices=("attention", "conv", "trainer", "fused", "preprocess",
-                                      "experiments"),
+                                      "experiments", "d2v"),
                    help="attention: build and run phases 1-3 only; conv: build conv.cu and "
                         "run phases 1, 2 and 6, then the conv grid comparison (to time two "
                         "checkouts in one call); trainer: build nothing, run phase 8 only; "
@@ -2824,7 +3274,8 @@ def parse_args(argv=None) -> argparse.Namespace:
                         "corpus and manifest); preprocess: build attention.cu and run phases "
                         "1, 2, 9 and 10 (phase 10 reads phase 9's checkpoint); experiments: "
                         "build attention.cu and run phases 1, 2, 9, 10 and 11 (phase 11 "
-                        "reads phase 10's stores)")
+                        "reads phase 10's stores); d2v: build attention.cu and run phases "
+                        "1, 2, 9 and 12 (phase 12 reads phase 9's corpus and checkpoint)")
     return p.parse_args(argv)
 
 
@@ -2841,8 +3292,8 @@ def main(argv=None) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
 
     sources = {None: SOURCES, "trainer": (), "fused": ("attention",),
-               "preprocess": ("attention",), "experiments": ("attention",)}.get(
-        args.only, (args.only,))
+               "preprocess": ("attention",), "experiments": ("attention",),
+               "d2v": ("attention",)}.get(args.only, (args.only,))
     t0 = time.perf_counter()
     if sources:
         with concurrent.futures.ThreadPoolExecutor(len(sources)) as pool:
@@ -2856,9 +3307,9 @@ def main(argv=None) -> int:
 
     if args.only == "trainer":
         run_feature_trainer()
-    elif args.only in ("fused", "preprocess", "experiments"):
-        run_stage1_and_fused(only_fused=args.only == "fused",
-                             experiments=args.only == "experiments")
+    elif args.only in ("fused", "preprocess", "experiments", "d2v"):
+        run_stage1_and_fused(only_fused=args.only in ("fused", "d2v"),
+                             experiments=args.only == "experiments", d2v=args.only == "d2v")
     elif args.only == "conv":
         # the serving slice's encoder weights and the training slice's noisy batch
         enc_cfg = EncoderConfig(dtype="bfloat16", use_flash_attention=True)
@@ -2884,7 +3335,7 @@ def main(argv=None) -> int:
     del clean, noisy
     torch.cuda.empty_cache()
     run_feature_trainer()
-    fused, pre, exp = run_stage1_and_fused()
+    fused, pre, exp, d2v_info = run_stage1_and_fused()
 
     def entry(name, source, replaces, launches, r):
         return dict(name=name, route="cuda", source=f"{PORT_PKG}/csrc/{source}",
@@ -2903,7 +3354,7 @@ def main(argv=None) -> int:
     kernels = [
         entry("flash_attention", "attention.cu", f"{JAX_PKG}/ops/attention.py:28",
               slice_info["launches"] + train["launches"] + fused["launches"] + pre["launches"]
-              + exp["launches"], step_attn),
+              + exp["launches"] + d2v_info["launches"], step_attn),
         entry("fused_layernorm", "fused_norm.cu", f"{JAX_PKG}/ops/fused_norm.py:44",
               norm["launches"]["fused_layernorm"], norm["rows"][("ln_gelu", torch.bfloat16)]),
         entry("fused_conv_ln_gelu", "conv.cu", f"{JAX_PKG}/ops/conv.py:86",

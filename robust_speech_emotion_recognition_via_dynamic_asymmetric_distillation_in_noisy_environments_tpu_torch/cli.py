@@ -11,6 +11,8 @@
     python -m <pkg> analyze --kind disagreement --results-dir RESULTS/fold_1
     python -m <pkg> infer --weights dad_best.pth --test-data NOISY_FEATS [--split all]
     python -m <pkg> serve --weights dad_best.pth [--checkpoint emotion2vec_base.pt]
+    python -m <pkg> d2v-pretrain --manifests MANIFESTS --save-dir D2V [--init-checkpoint emotion2vec_base.pt]
+    python -m <pkg> d2v-pack --manifests MANIFESTS --out-dirs PACKED
 
 Ported so far, each with the JAX package's flags plus ``--device`` where it
 touches a tensor (default ``cuda``; ``cpu`` to run on the CPU):
@@ -30,7 +32,11 @@ touches a tensor (default ``cuda``; ``cpu`` to run on the CPU):
 - ``ablation`` and ``sensitivity``: the experiment harness, on feature
   stores or ``--from-wav`` (the startup shared by all experiments);
 - ``analyze``: disagreement, confirmation bias, DACP evolution, corpus
-  distribution and t-SNE (the t-SNE itself needs scikit-learn).
+  distribution and t-SNE (the t-SNE itself needs scikit-learn);
+- ``d2v-pretrain``: data2vec-2.0 self-supervised pretraining of the
+  encoder (``--binarized`` reads stores from ``d2v-pack``); the encoder
+  trains with plain attention (the kernel is forward-only), and ``--prng``
+  is accepted with either value, both drawing from one torch generator.
 The encoders of ``extract``, ``preprocess``, ``serve`` and the
 ``--from-wav`` modes run attention through the hand-written CUDA kernel
 unless ``--encoder-json`` sets ``use_flash_attention``. The trainers hold
@@ -38,8 +44,7 @@ the fold's training corpus on the device when it fits (``--resident
 auto``, the default; ``on`` / ``off``). ``dad --fold all``, ``ablation``
 and ``sensitivity`` log a failed fold or experiment and go on, then exit
 with status 1. ``--dp``/``--tp`` (multi-GPU) exit with status 2, naming the
-ROADMAP.md item that brings them. ``d2v-pretrain`` and ``d2v-pack`` are
-recognised and exit with status 2, saying they are not ported yet.
+ROADMAP.md item that brings them.
 """
 
 from __future__ import annotations
@@ -48,7 +53,7 @@ import argparse
 import os
 import sys
 
-NOT_PORTED = ("d2v-pretrain", "d2v-pack")
+NOT_PORTED = ()  # every subcommand of the JAX package's CLI is ported
 
 
 def _cmd_manifest(args):
@@ -643,6 +648,129 @@ def _add_dad_parser(sub) -> None:
     p.set_defaults(func=_cmd_dad)
 
 
+def _cmd_d2v_pretrain(args):
+    from .configs import D2vPretrainConfig, EncoderConfig, load_encoder_json
+    from .train.d2v_pretrain import run_d2v_pretrain
+    from .utils import MESH_NOT_PORTED
+
+    if args.dp > 0 or args.tp > 1:
+        return _refuse(f"--dp/--tp: {MESH_NOT_PORTED}")
+    enc_kw = {}
+    if args.fast:
+        # the JAX package's --fast encoder knobs; --encoder-json still wins
+        enc_kw.update(dtype="bfloat16", fast_ln=True, fast_softmax=True, gelu_approximate=True)
+    if args.encoder_json:
+        enc_kw.update(load_encoder_json(args.encoder_json))
+    cfg = EncoderConfig(**enc_kw)
+    pcfg = D2vPretrainConfig(
+        batch_size=args.batch_size, max_steps=args.steps, warmup_steps=args.warmup_steps,
+        learning_rate=args.lr, crop_size=args.crop_size, min_sample_size=args.min_sample_size,
+        mask_prob=args.mask_prob, mask_length=args.mask_length, clone_batch=args.clone_batch,
+        cls_loss=args.cls_loss, rng_impl=args.prng, ema_dtype=args.ema_dtype,
+        adam_mu_dtype=args.adam_mu_dtype, remat_blocks=args.remat,
+    )
+    weights = [float(w) for w in args.weights.split(",")] if args.weights else None
+    run_d2v_pretrain(
+        cfg, pcfg, args.manifests, args.save_dir, weights=weights,
+        init_checkpoint=args.init_checkpoint, log_every=args.log_every,
+        checkpoint_every=args.checkpoint_every, resume=args.resume,
+        binarized=args.binarized, transfer_dtype=args.transfer_dtype,
+        scan_chunk=args.scan_chunk, valid_manifests=args.valid_manifests,
+        valid_split=args.valid_split, valid_every=args.valid_every,
+        resident=RESIDENT[args.resident], resident_max_bytes=args.resident_max_bytes,
+        device=args.device,
+    )
+    return 0
+
+
+def _cmd_d2v_pack(args):
+    from .data.binarized import pack_manifest
+    from .utils import resolve_device
+
+    resolve_device(args.device)  # packing runs on the host; the flag is checked as everywhere
+    if len(args.manifests) != len(args.out_dirs):
+        raise ValueError(f"--manifests ({len(args.manifests)}) and --out-dirs "
+                         f"({len(args.out_dirs)}) must pair up")
+    for mdir, out in zip(args.manifests, args.out_dirs):
+        n, total = pack_manifest(mdir, out, split=args.split, sample_rate=args.sample_rate)
+        print(f"{mdir} -> {out}: {n} clips, {total} samples")
+    return 0
+
+
+def _add_d2v_parsers(sub) -> None:
+    p = sub.add_parser("d2v-pretrain",
+                       help="self-supervised data2vec-2.0 pretraining of the encoder")
+    p.add_argument("--manifests", nargs="+", required=True,
+                   help="manifest dirs (train.tsv); several mix like MultiCorpusDataset")
+    p.add_argument("--weights", default=None,
+                   help="comma-separated per-manifest sampling weights")
+    p.add_argument("--save-dir", required=True)
+    p.add_argument("--init-checkpoint", default=None,
+                   help="emotion2vec_base.pt to continue pretraining from")
+    p.add_argument("--encoder-json", default=None, help="JSON of EncoderConfig overrides")
+    p.add_argument("--batch-size", type=int, default=16)
+    p.add_argument("--steps", type=int, default=100_000)
+    p.add_argument("--warmup-steps", type=int, default=8_000)
+    p.add_argument("--lr", type=float, default=7.5e-4)
+    p.add_argument("--crop-size", type=int, default=160_000)
+    p.add_argument("--min-sample-size", type=int, default=32_000,
+                   help="skip clips shorter than this many samples")
+    p.add_argument("--mask-prob", type=float, default=0.7)
+    p.add_argument("--mask-length", type=int, default=5)
+    p.add_argument("--clone-batch", type=int, default=8)
+    p.add_argument("--cls-loss", type=float, default=1.0)
+    p.add_argument("--log-every", type=int, default=50)
+    p.add_argument("--checkpoint-every", type=int, default=1000)
+    p.add_argument("--resume", action="store_true")
+    p.add_argument("--dp", type=int, default=0, help="data-parallel size (not ported)")
+    p.add_argument("--tp", type=int, default=1, help="tensor-parallel size (not ported)")
+    p.add_argument("--binarized", action="store_true",
+                   help="--manifests point at packed stores from `d2v-pack`")
+    p.add_argument("--prng", choices=["threefry", "rbg"], default="threefry",
+                   help="accepted for the JAX CLI's sake: both draw from one torch generator")
+    p.add_argument("--ema-dtype", choices=["float32", "bfloat16"], default="float32",
+                   help="EMA-teacher storage dtype (the update math stays f32)")
+    p.add_argument("--adam-mu-dtype", choices=["bfloat16"], default=None,
+                   help="AdamW first-moment storage dtype")
+    p.add_argument("--remat", action="store_true",
+                   help="recompute the transformer blocks in the backward pass "
+                        "(torch.utils.checkpoint): the same gradients, less memory")
+    p.add_argument("--transfer-dtype", default=None, metavar="DTYPE",
+                   help="ship wav batches host->device in this dtype (e.g. bfloat16; "
+                        "quantizes the waveform)")
+    p.add_argument("--scan-chunk", type=int, default=1,
+                   help="updates per chunk of stacked batches (the same history as per-step)")
+    p.add_argument("--valid-manifests", nargs="+", default=None,
+                   help="manifest dirs with a <valid-split>.tsv: the masked objective there "
+                        "every --valid-every steps, the best state kept")
+    p.add_argument("--valid-split", default="valid")
+    p.add_argument("--valid-every", type=int, default=1000)
+    p.add_argument("--fast", action="store_true",
+                   help="bf16 encoder + fast_ln/fast_softmax/tanh-GELU (--encoder-json "
+                        "still overrides)")
+    p.add_argument("--resident", choices=["auto", "on", "off"], default="auto",
+                   help="the normalized training audio on the device once, crops gathered "
+                        "there (the same batches; per-step only: auto streams with "
+                        "--scan-chunk > 1)")
+    p.add_argument("--resident-max-bytes", type=int, default=8 << 30,
+                   help="auto mode's device-memory budget for the corpus")
+    p.add_argument("--device", default="cuda",
+                   help="cuda (default) or cpu; without a GPU, cuda fails")
+    p.set_defaults(func=_cmd_d2v_pretrain)
+
+    p = sub.add_parser("d2v-pack", help="pack wav manifests into float32 stores for "
+                                        "`d2v-pretrain --binarized`")
+    p.add_argument("--manifests", nargs="+", required=True, help="manifest dirs")
+    p.add_argument("--out-dirs", nargs="+", required=True,
+                   help="one output dir per manifest dir")
+    p.add_argument("--split", default="train")
+    p.add_argument("--sample-rate", type=int, default=16_000)
+    p.add_argument("--device", default="cuda",
+                   help="cuda (default) or cpu, checked as by every subcommand; packing "
+                        "itself runs on the host")
+    p.set_defaults(func=_cmd_d2v_pack)
+
+
 def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(prog="dad_torch", description=__doc__,
                                      formatter_class=argparse.RawDescriptionHelpFormatter)
@@ -673,21 +801,13 @@ def build_parser() -> argparse.ArgumentParser:
     _add_pretrain_parser(sub)
     _add_experiment_parsers(sub)
     _add_analyze_parser(sub)
-
-    for name in NOT_PORTED:
-        sub.add_parser(name, add_help=False, help="not ported yet")
+    _add_d2v_parsers(sub)
     return parser
 
 
 def main(argv=None) -> int:
     parser = build_parser()
-    args, extra = parser.parse_known_args(argv)
-    if args.cmd in NOT_PORTED:
-        print(f"{parser.prog}: '{args.cmd}' is not ported to the PyTorch "
-              "package yet; use the JAX package's CLI", file=sys.stderr)
-        return 2
-    if extra:
-        parser.error(f"unrecognized arguments: {' '.join(extra)}")
+    args = parser.parse_args(argv)
     try:
         return args.func(args)
     except (FileNotFoundError, ValueError, KeyError) as e:

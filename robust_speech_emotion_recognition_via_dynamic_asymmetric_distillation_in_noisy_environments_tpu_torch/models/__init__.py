@@ -1,3 +1,11 @@
+from .d2v_pretrain import (
+    D2vPretrainModel,
+    D2vTrainState,
+    Decoder1d,
+    encoder_params,
+    init_d2v_state,
+    make_d2v_train_step,
+)
 from .emotion2vec import Emotion2vecEncoder, extract_features, normalize_wav
 from .extract import FeatureExtractor, extract_manifest
 from .heads import (
@@ -12,6 +20,12 @@ from .heads import (
 )
 
 __all__ = [
+    "D2vPretrainModel",
+    "D2vTrainState",
+    "Decoder1d",
+    "encoder_params",
+    "init_d2v_state",
+    "make_d2v_train_step",
     "Emotion2vecEncoder",
     "extract_features",
     "normalize_wav",

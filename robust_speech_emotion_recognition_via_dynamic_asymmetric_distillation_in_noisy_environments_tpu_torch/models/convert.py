@@ -21,7 +21,9 @@
   writes the file both packages' loaders read.
 - ``flax_train_state_to_torch``: a JAX ``DADTrainState`` (numpy leaves)
   -> the port's, optimizer and DACP state included, so both frameworks can
-  start from one state.
+  start from one state; ``flax_d2v_state_to_torch`` the same for a JAX
+  ``D2vTrainState`` (student with its decoder, EMA blocks, AdamW moments,
+  count and step).
 """
 
 from __future__ import annotations
@@ -161,10 +163,13 @@ def fairseq_to_torch_encoder(
     return out
 
 
-def flax_encoder_to_torch(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+def flax_encoder_to_torch(params: Mapping[str, Any], keep_bf16: bool = False
+                          ) -> Dict[str, torch.Tensor]:
     """The JAX package's encoder param tree ({"params": ...} or its inside,
     leaves as numpy arrays) -> the port's encoder state dict. Works for any
-    tree of Dense / Conv / LayerNorm leaves, e.g. a ``DADHead``'s."""
+    tree of Dense / Conv / LayerNorm leaves, e.g. a ``DADHead``'s or the d2v
+    model's. Leaves come out f32; ``keep_bf16`` keeps bfloat16 leaves
+    bfloat16 (the d2v state's storage dtypes)."""
     tree = params.get("params", params)
     out: Dict[str, torch.Tensor] = {}
 
@@ -181,9 +186,10 @@ def flax_encoder_to_torch(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
             leaf = "weight"
         elif leaf == "scale":
             leaf = "weight"
-        out[".".join(path[:-1] + (leaf,))] = torch.from_numpy(
-            np.ascontiguousarray(arr)
-        )
+        t = torch.from_numpy(np.ascontiguousarray(arr))
+        if keep_bf16 and str(getattr(node, "dtype", "")) == "bfloat16":
+            t = t.to(torch.bfloat16)
+        out[".".join(path[:-1] + (leaf,))] = t
 
     walk(tree, ())
     return out
@@ -303,3 +309,37 @@ def flax_train_state_to_torch(state: Any, device=None):
                          for f in DACPState._fields)),
     )
 
+
+
+def _find_adam(opt_state: Any):
+    """The optax state in a (nested) chain state that holds Adam's moments."""
+    if hasattr(opt_state, "mu") and hasattr(opt_state, "nu"):
+        return opt_state
+    if isinstance(opt_state, tuple):
+        for sub in opt_state:
+            found = _find_adam(sub)
+            if found is not None:
+                return found
+    return None
+
+
+def flax_d2v_state_to_torch(state: Any, device=None):
+    """The JAX package's ``D2vTrainState`` (leaves as numpy arrays) -> the
+    port's ``D2vTrainState``: the student (decoder included), the EMA
+    blocks and Adam's first moment in their storage dtypes, the second
+    moment, Adam's count and the step. Read by attribute."""
+    from .d2v_pretrain import D2vAdamState, D2vTrainState
+
+    def tree(t):
+        return {k: v.to(device) for k, v in flax_encoder_to_torch(t, keep_bf16=True).items()}
+
+    def count(x):
+        return torch.as_tensor(np.asarray(x), dtype=torch.int32, device=device)
+
+    adam = _find_adam(state.opt_state)
+    return D2vTrainState(
+        params=tree(state.params),
+        ema_blocks=tree(state.ema_blocks),
+        opt_state=D2vAdamState(count=count(adam.count), mu=tree(adam.mu), nu=tree(adam.nu)),
+        step=count(state.step),
+    )

@@ -5,10 +5,11 @@
         -> prenet LN + 4 AltBlocks (post-LN)
         -> 8 AltBlocks (post-LN)
 
-Forward without dropout: serving and the DAD step run the encoder frozen;
-``deterministic=False`` (dropout, layerdrop) belongs to d2v pretraining, not
-ported yet, and raises. ``normalize_wav`` is the waveform layer norm the
-extraction CLI applies before the encoder.
+Serving and the DAD step run the encoder frozen (``deterministic=True``);
+``deterministic=False`` is the training forward: dropout in every block and
+layerdrop (a whole block skipped with probability ``layerdrop``, one draw
+per block), drawn from the caller's generator. ``normalize_wav`` is the
+waveform layer norm the extraction CLI applies before the encoder.
 """
 
 from __future__ import annotations
@@ -16,7 +17,9 @@ from __future__ import annotations
 from typing import Optional, Tuple
 
 import torch
+import torch.utils.checkpoint
 from torch import nn
+from torch.func import functional_call
 
 from ..configs import EncoderConfig
 from .layers import (
@@ -24,7 +27,7 @@ from .layers import (
     ConvFeatureExtractor,
     Dense,
     PositionalConv,
-    _not_ported,
+    alibi_bias,
     convert_padding_mask,
     make_norm,
 )
@@ -57,8 +60,6 @@ def normalize_wav(wav: torch.Tensor,
 class Emotion2vecEncoder(nn.Module):
     def __init__(self, cfg: EncoderConfig):
         super().__init__()
-        if cfg.use_alibi_encoder:
-            raise _not_ported("use_alibi_encoder")
         self.cfg = cfg
         dtype = torch_dtype(cfg.dtype)
         self.dtype = dtype
@@ -79,14 +80,7 @@ class Emotion2vecEncoder(nn.Module):
         names = [f"prenet_block_{i}" for i in range(cfg.prenet_depth)]
         names += [f"block_{i}" for i in range(cfg.depth)]
         for name in names:
-            self.add_module(name, AltBlock(
-                cfg.embed_dim, cfg.num_heads, mlp_ratio=cfg.mlp_ratio,
-                norm_eps=cfg.norm_eps, layer_norm_first=cfg.layer_norm_first,
-                dtype=dtype, use_flash=cfg.use_flash_attention,
-                gelu_approximate=cfg.gelu_approximate, fast_ln=cfg.fast_ln,
-                fast_softmax=cfg.fast_softmax,
-                cosine_attention=cfg.cosine_attention,
-            ))
+            self.add_module(name, make_block(cfg))
         self.block_names = tuple(names)
 
     def forward(
@@ -94,9 +88,9 @@ class Emotion2vecEncoder(nn.Module):
         wav: torch.Tensor,  # (B, T) waveform at 16 kHz
         padding_mask: Optional[torch.Tensor] = None,  # (B, T) bool True=pad
         deterministic: bool = True,
+        generator: Optional[torch.Generator] = None,
     ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
-        if not deterministic:
-            raise _not_ported("the training forward (dropout, layerdrop)")
+        """``deterministic=False``: dropout and layerdrop from ``generator``."""
         cfg = self.cfg
         x = self.local_encoder(wav)
         x = self.proj(self.proj_ln(x).to(self.dtype))
@@ -107,13 +101,60 @@ class Emotion2vecEncoder(nn.Module):
                 padding_mask, x.shape[1], cfg.conv_feature_layers
             )
         x = x + self.pos_conv(x, frame_mask)
+        bias = None
+        if cfg.use_alibi_encoder:
+            bias = alibi_bias(x.shape[1], cfg.num_heads, cfg.alibi_scale, self.dtype, x.device)
 
         # prenet: post-LN => LN applied BEFORE the blocks
         x = self.prenet_ln(x).to(self.dtype)
         for name in self.block_names:
-            x = getattr(self, name)(x, frame_mask)
+            rate = cfg.prenet_layerdrop if name.startswith("prenet") else cfg.layerdrop
+            x = run_block(getattr(self, name), x, frame_mask, bias, deterministic,
+                          generator, rate)
         # layer_norm_first=False => no final norm
         return x, frame_mask
+
+
+def make_block(cfg: EncoderConfig, return_ffn_target: bool = False) -> AltBlock:
+    """One transformer block of the encoder's configuration."""
+    return AltBlock(
+        cfg.embed_dim, cfg.num_heads, mlp_ratio=cfg.mlp_ratio,
+        drop=cfg.encoder_dropout, attn_drop=cfg.attention_dropout,
+        mlp_drop=cfg.activation_dropout, post_mlp_drop=cfg.post_mlp_drop,
+        norm_eps=cfg.norm_eps, layer_norm_first=cfg.layer_norm_first,
+        dtype=torch_dtype(cfg.dtype), use_flash=cfg.use_flash_attention,
+        gelu_approximate=cfg.gelu_approximate, fast_ln=cfg.fast_ln,
+        fast_softmax=cfg.fast_softmax, cosine_attention=cfg.cosine_attention,
+        return_ffn_target=return_ffn_target,
+    )
+
+
+def run_block(block: AltBlock, x: torch.Tensor, frame_mask: Optional[torch.Tensor],
+              bias: Optional[torch.Tensor], deterministic: bool,
+              generator: Optional[torch.Generator], layerdrop: float = 0.0,
+              remat: bool = False):
+    """A block's forward in the encoder's stack. Training
+    (``deterministic=False``): with probability ``layerdrop`` the whole
+    block is skipped (one draw; a skipped block returns its input); else its
+    dropout masks are drawn before it runs, so that ``remat`` (recompute in
+    the backward through ``torch.utils.checkpoint``) sees the same masks."""
+    keeps = None
+    if not deterministic:
+        if layerdrop > 0 and not bool(torch.rand((), generator=generator,
+                                                 device=x.device) < 1.0 - layerdrop):
+            return x
+        keeps = block.draw_keeps(x, generator, bias)
+    if remat:
+        # the block's tensors go in as arguments: the recompute runs in the
+        # backward, after a ``functional_call`` that swapped them in is over
+        names, tensors = zip(*block.named_parameters())
+
+        def fn(x, frame_mask, bias, keeps, *ps):
+            return functional_call(block, dict(zip(names, ps)), (x, frame_mask, bias, keeps))
+
+        return torch.utils.checkpoint.checkpoint(fn, x, frame_mask, bias, keeps, *tensors,
+                                                 use_reentrant=False)
+    return block(x, frame_mask, bias, keeps)
 
 
 def extract_features(

@@ -24,6 +24,7 @@ import torch
 from torch import nn
 
 from ..ops.masked import masked_mean_pool
+from .layers import dropout
 
 
 def _linear(in_dim: int, out_dim: int) -> nn.Linear:
@@ -32,17 +33,6 @@ def _linear(in_dim: int, out_dim: int) -> nn.Linear:
     nn.init.zeros_(layer.weight)
     nn.init.zeros_(layer.bias)
     return layer
-
-
-def dropout(x: torch.Tensor, rate: float, generator: Optional[torch.Generator]) -> torch.Tensor:
-    """Inverted dropout as flax's ``nn.Dropout``: keep with probability
-    1 - rate, scale kept values by 1 / (1 - rate)."""
-    if rate <= 0:
-        return x
-    if rate >= 1:
-        return torch.zeros_like(x)
-    keep = torch.rand(x.shape, generator=generator, device=x.device) < 1.0 - rate
-    return torch.where(keep, x / (1.0 - rate), torch.zeros_like(x))
 
 
 class PretrainHead(nn.Module):

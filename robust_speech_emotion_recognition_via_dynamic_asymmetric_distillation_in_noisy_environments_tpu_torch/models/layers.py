@@ -18,17 +18,21 @@ Convolutions go to ``F.conv1d``: in the JAX package they are XLA
 convolutions, not Pallas kernels. Attention routes to the hand-written
 kernel (``ops/attention.py``) when ``use_flash`` asks for it.
 
-Branches the shipped config never takes (cosine attention, alibi, layerdrop,
-``layer_norm_first=True``) are not ported yet and raise
-``NotImplementedError``. The encoder has no training-mode dropout here: it
-runs frozen in the DAD step, and only d2v pretraining (not ported yet)
-trains it.
+The training forward (d2v pretraining) has flax's dropout: keep with
+probability 1 - rate, kept values scaled by 1 / (1 - rate). A block's keep
+masks are drawn before it runs, in the order its forward uses them
+(``AltBlock.draw_keeps``), so a block recomputed for its backward
+(``torch.utils.checkpoint``) sees the same masks. Also here: the branches
+the shipped config never takes (cosine attention, alibi, ``layer_norm_first``)
+and the additive attention ``bias``.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Sequence, Tuple, Union
+import math
+from typing import Iterator, List, Optional, Sequence, Tuple, Union
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -48,10 +52,31 @@ def big_neg(dtype: torch.dtype) -> float:
     return float(torch.finfo(dtype).min) / 2
 
 
-def _not_ported(what: str):
-    return NotImplementedError(
-        f"{what} is not ported to the PyTorch package yet"
-    )
+def dropout(x: torch.Tensor, rate: float, generator: Optional[torch.Generator] = None,
+            keep: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """flax ``nn.Dropout``: keep with probability 1 - rate (``keep``, or a
+    draw from ``generator``), kept values scaled by 1 / (1 - rate)."""
+    if rate <= 0:
+        return x
+    if rate >= 1:
+        return torch.zeros_like(x)
+    if keep is None:
+        keep = draw_keep(x.shape, rate, generator, x.device)
+    return torch.where(keep, x / (1.0 - rate), torch.zeros((), dtype=x.dtype, device=x.device))
+
+
+def draw_keep(shape, rate: float, generator: Optional[torch.Generator],
+              device) -> torch.Tensor:
+    """A dropout keep mask: True with probability 1 - rate."""
+    return torch.rand(shape, generator=generator, device=device) < 1.0 - rate
+
+
+def _drop(x: torch.Tensor, rate: float, keeps: Optional[Iterator[torch.Tensor]]) -> torch.Tensor:
+    """Dropout at one site of a block: the next of the block's keep masks
+    (``keeps`` None: deterministic)."""
+    if keeps is None or rate <= 0:
+        return x
+    return dropout(x, rate, keep=None if rate >= 1 else next(keeps))
 
 
 class LayerNorm(nn.Module):
@@ -243,41 +268,60 @@ class PositionalConv(nn.Module):
 
 
 class Mlp(nn.Module):
-    """timm-style MLP: fc1 -> GELU -> fc2 (no dropout: the encoder is frozen)."""
+    """timm-style MLP: fc1 -> GELU -> drop -> fc2 -> drop."""
 
-    def __init__(self, dim: int, hidden_dim: int, out_dim: int,
-                 dtype: torch.dtype = torch.float32,
-                 gelu_approximate: bool = False):
+    def __init__(self, dim: int, hidden_dim: int, out_dim: int, drop: float = 0.0,
+                 dtype: torch.dtype = torch.float32, gelu_approximate: bool = False):
         super().__init__()
+        self.drop = drop
         self.gelu_approximate = gelu_approximate
         self.fc1 = Dense(dim, hidden_dim, dtype)
         self.fc2 = Dense(hidden_dim, out_dim, dtype)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.fc2(_gelu(self.fc1(x), self.gelu_approximate))
+    def forward(self, x: torch.Tensor,
+                keeps: Optional[Iterator[torch.Tensor]] = None) -> torch.Tensor:
+        x = _drop(_gelu(self.fc1(x), self.gelu_approximate), self.drop, keeps)
+        return _drop(self.fc2(x), self.drop, keeps)
 
 
 class AltAttention(nn.Module):
     """Multi-head self-attention with fused qkv. ``use_flash`` True, or
     "auto" at N >= FLASH_AUTO_MIN_FRAMES, routes the core to
-    ``ops.attention.flash_attention``; otherwise the einsum path below."""
+    ``ops.attention.flash_attention`` when no bias, no cosine attention and
+    no attention dropout is asked for (the JAX ``flash_ok``); otherwise the
+    einsum path below. The kernel is forward-only: a differentiated block
+    must not take it (``make_d2v_train_step`` refuses such a config).
 
-    def __init__(self, dim: int, num_heads: int,
-                 dtype: torch.dtype = torch.float32,
+    ``cosine_attention``: L2-normalised q and k with a learned per-head
+    logit scale, clamped at log(1/0.01)."""
+
+    def __init__(self, dim: int, num_heads: int, attn_drop: float = 0.0,
+                 proj_drop: float = 0.0, dtype: torch.dtype = torch.float32,
                  use_flash: Union[bool, str] = False,
                  fast_softmax: bool = False, cosine_attention: bool = False):
         super().__init__()
-        if cosine_attention:
-            raise _not_ported("cosine_attention")
         self.num_heads = num_heads
+        self.attn_drop, self.proj_drop = attn_drop, proj_drop
         self.dtype = dtype
         self.use_flash = use_flash
         self.fast_softmax = fast_softmax
+        self.cosine_attention = cosine_attention
         self.qkv = Dense(dim, dim * 3, dtype)
         self.proj = Dense(dim, dim, dtype)
+        if cosine_attention:
+            self.logit_scale = nn.Parameter(torch.full((num_heads, 1, 1), math.log(10.0)))
+
+    def flash_ok(self, n: int, bias: Optional[torch.Tensor], deterministic: bool) -> bool:
+        want_flash = self.use_flash is True or (
+            self.use_flash == "auto" and n >= FLASH_AUTO_MIN_FRAMES
+        )
+        return (want_flash and bias is None and not self.cosine_attention
+                and (deterministic or self.attn_drop == 0.0))
 
     def forward(self, x: torch.Tensor,
-                padding_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+                padding_mask: Optional[torch.Tensor] = None,
+                bias: Optional[torch.Tensor] = None,
+                keeps: Optional[Iterator[torch.Tensor]] = None) -> torch.Tensor:
         B, N, C = x.shape
         H = self.num_heads
         head_dim = C // H
@@ -286,10 +330,7 @@ class AltAttention(nn.Module):
         qkv = self.qkv(x).reshape(B, N, 3, H, head_dim)
         q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]  # (B, N, H, Dh)
 
-        want_flash = self.use_flash is True or (
-            self.use_flash == "auto" and N >= FLASH_AUTO_MIN_FRAMES
-        )
-        if want_flash:
+        if self.flash_ok(N, bias, keeps is None):
             # q, k, v go in as strided views of the projection output, and the
             # output comes back as a view of a (B, N, H, Dh) buffer: no copy on
             # either side. The kernel scales the f32 scores instead of q; at
@@ -299,7 +340,16 @@ class AltAttention(nn.Module):
                 padding_mask=padding_mask, scale=scale,
             ).transpose(1, 2)
         else:
-            attn = torch.einsum("bnhd,bmhd->bhnm", q * scale, k)
+            if self.cosine_attention:
+                qn = q / torch.clamp(torch.linalg.vector_norm(q, dim=-1, keepdim=True), min=1e-12)
+                kn = k / torch.clamp(torch.linalg.vector_norm(k, dim=-1, keepdim=True), min=1e-12)
+                attn = torch.einsum("bnhd,bmhd->bhnm", qn, kn)
+                s = torch.exp(torch.clamp(self.logit_scale, max=math.log(1.0 / 0.01)))
+                attn = attn * s.to(attn.dtype)[None]
+            else:
+                attn = torch.einsum("bnhd,bmhd->bhnm", q * scale, k)
+            if bias is not None:
+                attn = attn + bias
             if padding_mask is not None:
                 attn = attn.masked_fill(
                     padding_mask[:, None, None, :], big_neg(attn.dtype)
@@ -310,33 +360,102 @@ class AltAttention(nn.Module):
                 attn = e / e.sum(dim=-1, keepdim=True)
             else:
                 attn = torch.softmax(attn.float(), dim=-1).to(self.dtype)
+            attn = _drop(attn, self.attn_drop, keeps)
             out = torch.einsum("bhnm,bmhd->bnhd", attn, v)
 
-        return self.proj(out.reshape(B, N, C))
+        return _drop(self.proj(out.reshape(B, N, C)), self.proj_drop, keeps)
 
 
 class AltBlock(nn.Module):
-    """Transformer block, post-LN variant (the shipped config)."""
+    """Transformer block: post-LN (the shipped config), or the fairseq
+    pre-LN branch with ``layer_norm_first`` (kept as the reference writes
+    it: the MLP output replaces the residual).
+
+    ``return_ffn_target``: also return the MLP output ``t`` before the
+    post-MLP dropout and norm, the per-layer target the d2v teacher
+    averages."""
 
     def __init__(self, dim: int, num_heads: int, mlp_ratio: float = 4.0,
+                 drop: float = 0.0, attn_drop: float = 0.0, mlp_drop: float = 0.0,
+                 post_mlp_drop: float = 0.0,
                  norm_eps: float = 1e-6, layer_norm_first: bool = False,
                  dtype: torch.dtype = torch.float32,
                  use_flash: Union[bool, str] = False,
                  gelu_approximate: bool = False, fast_ln: bool = False,
-                 fast_softmax: bool = False, cosine_attention: bool = False):
+                 fast_softmax: bool = False, cosine_attention: bool = False,
+                 return_ffn_target: bool = False):
         super().__init__()
-        if layer_norm_first:
-            raise _not_ported("layer_norm_first=True")
         self.dtype = dtype
-        self.attn = AltAttention(dim, num_heads, dtype, use_flash,
+        self.layer_norm_first = layer_norm_first
+        self.post_mlp_drop = post_mlp_drop
+        self.return_ffn_target = return_ffn_target
+        self.hidden_dim = int(dim * mlp_ratio)
+        self.attn = AltAttention(dim, num_heads, attn_drop, drop, dtype, use_flash,
                                  fast_softmax, cosine_attention)
         self.norm1 = make_norm(fast_ln, norm_eps, dim)
         self.norm2 = make_norm(fast_ln, norm_eps, dim)
-        self.mlp = Mlp(dim, int(dim * mlp_ratio), dim, dtype, gelu_approximate)
+        self.mlp = Mlp(dim, self.hidden_dim, dim, mlp_drop, dtype, gelu_approximate)
+
+    def draw_keeps(self, x: torch.Tensor, generator: Optional[torch.Generator],
+                   bias: Optional[torch.Tensor] = None) -> List[torch.Tensor]:
+        """The block's dropout keep masks for input ``x``, in the order its
+        forward uses them (attention probabilities, attention output, the
+        MLP's two sites, post-MLP); a site with rate 0 or 1 takes none."""
+        B, N, C = x.shape
+        attn = self.attn
+        sites = []
+        if not attn.flash_ok(N, bias, False):
+            sites.append(((B, attn.num_heads, N, N), attn.attn_drop))
+        sites += [((B, N, C), attn.proj_drop), ((B, N, self.hidden_dim), self.mlp.drop),
+                  ((B, N, C), self.mlp.drop), ((B, N, C), self.post_mlp_drop)]
+        return [draw_keep(shape, rate, generator, x.device)
+                for shape, rate in sites if 0 < rate < 1]
 
     def forward(self, x: torch.Tensor,
-                padding_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
-        x = x + self.attn(x, padding_mask)
-        r = self.norm1(x).to(self.dtype)
-        t = self.mlp(r)
-        return self.norm2(r + t).to(self.dtype)
+                padding_mask: Optional[torch.Tensor] = None,
+                bias: Optional[torch.Tensor] = None,
+                keeps: Optional[Sequence[torch.Tensor]] = None):
+        """``keeps``: the masks of ``draw_keeps`` for a training forward;
+        None runs deterministic."""
+        it = None if keeps is None else iter(keeps)
+        if self.layer_norm_first:
+            x = x + self.attn(self.norm1(x).to(self.dtype), padding_mask, bias, it)
+            t = self.mlp(self.norm2(x).to(self.dtype), it)
+            x = t + _drop(t, self.post_mlp_drop, it)
+        else:
+            x = x + self.attn(x, padding_mask, bias, it)
+            r = self.norm1(x).to(self.dtype)
+            t = self.mlp(r, it)
+            x = self.norm2(r + _drop(t, self.post_mlp_drop, it)).to(self.dtype)
+        if self.return_ffn_target:
+            return x, t
+        return x
+
+
+# ---------------------------------------------------------------------------
+# alibi positional bias (reference base.py:538-642), for
+# EncoderConfig.use_alibi_encoder
+# ---------------------------------------------------------------------------
+def alibi_slopes(attention_heads: int) -> np.ndarray:
+    """Per-head geometric slopes, with the reference's interleave for a head
+    count that is not a power of 2."""
+
+    def power_of_2(n):
+        start = 2 ** (-(2 ** -(math.log2(n) - 3)))
+        return [start * start**i for i in range(n)]
+
+    if math.log2(attention_heads).is_integer():
+        return np.array(power_of_2(attention_heads))
+    closest = 2 ** math.floor(math.log2(attention_heads))
+    extra = alibi_slopes(2 * closest)[0::2][: attention_heads - closest]
+    return np.concatenate([power_of_2(closest), extra])
+
+
+def alibi_bias(time_steps: int, attention_heads: int, scale: float = 1.0,
+               dtype: torch.dtype = torch.float32, device=None) -> torch.Tensor:
+    """(1, H, T, T) symmetric distance bias slope_h * -|i - j|, 0 on the
+    diagonal, broadcast over the batch."""
+    pos = np.arange(time_steps)
+    dist = -np.abs(pos[None, :] - pos[:, None]).astype(np.float64)
+    bias = alibi_slopes(attention_heads)[:, None, None] * dist[None]
+    return (scale * torch.as_tensor(bias, dtype=dtype, device=device))[None]

@@ -15,7 +15,9 @@ slot to 128 samples for a TPU gather's speed; that changes no value and is
 not done here.
 
 The runners (``make_resident_*_epoch_runner``) loop over a chunk of steps
-on the device, as ``dad/epoch_scan.py`` does for streamed chunks.
+on the device, as ``dad/epoch_scan.py`` does for streamed chunks. The d2v
+pretraining corpus (``resident_from_flat``, ``make_resident_d2v_step``)
+gathers fixed-size crops from per-row start offsets.
 """
 
 from __future__ import annotations
@@ -99,6 +101,28 @@ def resident_from_store(store, device, dtype: DType = None,
     return res
 
 
+def resident_from_flat(flat: np.ndarray, sizes: np.ndarray, device,
+                       labels: Optional[np.ndarray] = None) -> ResidentClips:
+    """Uploads a corpus that is already flat ((total[, D]) and per-clip
+    sizes), such as the d2v wav corpus of ``WavCropDataset.load_all_audio``."""
+    sizes = np.asarray(sizes, np.int64)
+    total = int(sizes.sum())
+    if total >= 2**31:
+        raise ValueError(f"corpus too large for int32 addressing ({total} rows)")
+    if total != len(flat):
+        raise ValueError(f"flat length {len(flat)} != sizes sum {total}")
+    offsets = np.concatenate([[0], np.cumsum(sizes)[:-1]]).astype(np.int64)
+    if labels is None:
+        labels = np.full(len(sizes), -1, np.int32)
+    dev_flat = torch.from_numpy(np.ascontiguousarray(flat)).to(device)
+    res = ResidentClips(flat=dev_flat, offsets=torch.from_numpy(offsets).to(device),
+                        sizes=torch.from_numpy(sizes).to(device),
+                        labels=torch.from_numpy(np.asarray(labels, np.int32)).to(device))
+    logger.info("resident corpus: %d clips, %.1f MB %s committed to %s", len(sizes),
+                dev_flat.nbytes / 1e6, dev_flat.dtype, device)
+    return res
+
+
 def resident_nbytes(store, dtype: DType = None) -> int:
     """The upload's size, estimated without building anything."""
     flat = store_flat(store)
@@ -108,13 +132,21 @@ def resident_nbytes(store, dtype: DType = None) -> int:
 
 
 def gather_clips(c: ResidentClips, idx: torch.Tensor, t: int,
-                 frame_cap: Optional[int] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+                 frame_cap: Optional[int] = None,
+                 starts: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, torch.Tensor]:
     """The padded (B, t[, D]) batch of clips ``idx`` ((B,) int, -1 = padded
     row) and its mask (True = pad): clips truncated to ``t`` (and
     ``frame_cap``), zero fill; the row assembly of PaddedBatchIterator and
-    PaddedWavIterator, on the device."""
+    PaddedWavIterator, on the device.
+
+    ``starts`` ((B,) int): a read offset within each clip, the fixed-size
+    random crop of ``WavCropDataset.batches``: row b reads samples
+    [starts[b], starts[b] + t) of clip idx[b], zero-padded past its end."""
     safe = idx.clamp(min=0).long()
     off, sz = c.offsets[safe], c.sizes[safe]
+    if starts is not None:
+        off = off + starts.long()
+        sz = sz - starts.long()  # samples left from the crop start
     pos_t = torch.arange(t, device=idx.device)
     valid = (pos_t[None, :] < sz[:, None]) & (idx >= 0)[:, None]
     if frame_cap is not None and t > frame_cap:
@@ -344,3 +376,24 @@ def make_resident_fused_epoch_runner(encoder, head, tx, cfg: FusedConfig, mesh=N
         return state, stacked
 
     return run
+
+
+def make_resident_d2v_step(model, tx):
+    """The d2v train step behind a crop gather from the resident wav corpus:
+
+    step(state, corpus, idx, starts, generator=None, draws=None, *, crop)
+    -> (state', metrics)
+
+    ``idx`` / ``starts`` are (B,) int32 (flat clip index, crop offset).
+    The corpus holds the normalised clips, so the gathered batch equals the
+    streamed ``WavCropDataset.batches`` batch for the same indices."""
+    from ..models.d2v_pretrain import make_d2v_train_step
+
+    core = make_d2v_train_step(model, tx)
+
+    def step(state, corpus: ResidentClips, idx, starts, generator=None, draws=None, *,
+             crop: int):
+        wav, pad = gather_clips(corpus, idx, crop, starts=starts)
+        return core(state, wav.float(), pad, generator, draws)
+
+    return step

@@ -177,13 +177,22 @@ def test_native_loader_audit(tmp_path):
 
 
 def test_dead_branches_raise():
+    """The branches the shipped config never takes (cosine attention, alibi,
+    layer_norm_first) and the training forward no longer raise: each builds
+    and runs, and with every dropout off the training forward equals the
+    deterministic one (tests/test_torch_d2v_model.py holds them to JAX)."""
+    off = dict(encoder_dropout=0.0, attention_dropout=0.0, post_mlp_drop=0.0,
+               use_flash_attention=False)
+    wav = torch.randn(2, 100, generator=torch.Generator().manual_seed(0))
     for overrides in (dict(cosine_attention=True), dict(use_alibi_encoder=True),
-                      dict(layer_norm_first=True)):
-        with pytest.raises(NotImplementedError):
-            Emotion2vecEncoder(cfg_pair(**overrides)[1])
-    model = Emotion2vecEncoder(cfg_pair()[1])
-    with pytest.raises(NotImplementedError):
-        model(torch.zeros(1, 100), deterministic=False)
+                      dict(layer_norm_first=True), {}):
+        model = Emotion2vecEncoder(cfg_pair(**overrides, **off)[1])
+        for p in model.parameters():
+            torch.nn.init.normal_(p, std=0.1, generator=torch.Generator().manual_seed(1))
+        det, _ = model(wav)
+        train, _ = model(wav, deterministic=False, generator=torch.Generator().manual_seed(2))
+        assert torch.isfinite(det).all()
+        torch.testing.assert_close(train, det, atol=0.0, rtol=0.0)
 
 
 def test_dad_head_and_ssrl_layout_match_jax(rng):

@@ -678,10 +678,15 @@ def test_cli_preprocess_on_the_cpu_matches_jax_cli(tmp_path, tiny_ckpt):
 
 
 @pytest.mark.parametrize("name", ["d2v-pretrain", "d2v-pack"])
-def test_subcommands_still_not_ported_exit_2(capsys, name):
-    assert name in cli.NOT_PORTED
-    assert cli.main([name, "--anything", "x"]) == 2
-    assert "not ported" in capsys.readouterr().err
+def test_d2v_subcommands_are_ported(capsys, name):
+    assert name not in cli.NOT_PORTED
+    with pytest.raises(SystemExit) as exc:
+        cli.main([name, "--help"])
+    assert exc.value.code == 0 and "--device" in capsys.readouterr().out
+    parser = cli.build_parser()
+    args = parser.parse_args([name, "--manifests", "m", "--out-dirs" if name == "d2v-pack"
+                              else "--save-dir", "o"])
+    assert args.device == "cuda"
 
 
 def test_stage_1_subcommands_are_ported():

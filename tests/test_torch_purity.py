@@ -39,6 +39,9 @@ def test_port_and_chip_smoke_import_without_jax():
     for sub in ("exp", "analysis", "train"):  # the JAX-free modules kept as copies
         assert f"{PORT_PKG}.{sub}" in PORT_MODULES
         assert any(m.startswith(f"{PORT_PKG}.{sub}.") for m in PORT_MODULES), sub
+    for mod in ("models.d2v_masking", "models.d2v_pretrain", "train.d2v_pretrain",
+                "data.binarized"):  # d2v pretraining
+        assert f"{PORT_PKG}.{mod}" in PORT_MODULES, mod
     env = dict(os.environ, PYTHONPATH=str(REPO) + os.pathsep + os.environ.get("PYTHONPATH", ""))
     res = subprocess.run(
         [sys.executable, "-c", _PROBE.format(jax_pkg=JAX_PKG), *PORT_MODULES, "chip_smoke"],
@@ -62,7 +65,7 @@ def test_port_sources_never_name_the_jax_package():
 
 @pytest.mark.parametrize("entry", ["FeatureExtractor", "EmotionPredictor", "cli",
                                    "init_fused", "norm_probe", "pretrain", "experiment",
-                                   "tsne"])
+                                   "tsne", "d2v-pretrain"])
 def test_entry_points_without_device_raise_without_cuda(monkeypatch, entry):
     from robust_speech_emotion_recognition_via_dynamic_asymmetric_distillation_in_noisy_environments_tpu_torch import (
         cli,
@@ -110,6 +113,11 @@ def test_entry_points_without_device_raise_without_cuda(monkeypatch, entry):
             )
 
             run_single_experiment(dad_preset("iemocap"), "x", {})
+        elif entry == "d2v-pretrain":
+            args = cli.build_parser().parse_args(["d2v-pretrain", "--manifests", "unused",
+                                                  "--save-dir", "unused"])
+            assert args.device == "cuda"
+            args.func(args)
         elif entry == "tsne":
             from robust_speech_emotion_recognition_via_dynamic_asymmetric_distillation_in_noisy_environments_tpu_torch.analysis.tsne import (
                 make_embedder,
