@@ -22,7 +22,9 @@ Phases (any failure raises and the script exits non-zero without a result):
    strided views; times the kernel in turns with torch's
    scaled_dot_product_attention (a yardstick only: the port never calls
    it) with the measures of phase 5 below, the plain version's call ms,
-   and computes the bound. ``--only attention`` stops after this phase.
+   and computes the bound; then the kernel against plain on a tensor-parallel
+   rank's heads (H 6 and 3, the rank's own qkv views). ``--only attention``
+   stops after this phase.
 4. the slice: full-width emotion2vec-base (768-d, 12 heads, 4 prenet + 8
    blocks, 7-layer conv front end, 5-layer positional conv) from seeded
    random weights in the fairseq layout, bf16, attention through the
@@ -172,8 +174,23 @@ Phases (any failure raises and the script exits non-zero without a result):
     their share of the bf16 peak, a torch.profiler breakdown of step 30
     with the device's busy share, peak device GB, startup (decode,
     resident commit), validation and checkpoint-write seconds.
-    ``--only d2v`` builds attention.cu and runs phases 1, 2, 9 and 12.
-13. prints the ``nvidia-smi`` line, a ``kernels`` JSON line (all four
+    ``--only d2v`` builds attention.cu and runs phases 1, 2 and 12 (with
+    phase 9's corpus and checkpoint, not its trainer).
+13. the DAD paths over a (dp, tp) process grid, on phase 9's corpus and
+    checkpoint. (a) ``cli dad --from-wav`` on every 8th clip, 2 epochs,
+    once plain and once under ``torchrun --nproc_per_node 1`` with ``--dp
+    1`` (a world of one over NCCL), each in a worker process of this
+    script (``--worker``): the same history, best .pth and final report,
+    bit for bit; ms a step (epoch 2's median, CUDA events) both ways. (b)
+    two worker processes on the one card over gloo, through the library
+    API: a probe of gloo's all-reduce and all-gather on CUDA f32 and bf16
+    tensors, then 3 fused steps at (dp, tp) = (2, 1), extraction of a batch
+    of 16 and 3 fused steps at (1, 2) (full width, bf16, attention through
+    the kernel on 6 heads a rank), held to one process at the global batch
+    by phase 9's kernel-vs-plain criteria, launches counted. ``--only
+    parallel`` builds attention.cu, writes phase 9's corpus and runs phases
+    1, 2 and 13.
+14. prints the ``nvidia-smi`` line, a ``kernels`` JSON line (all four
     kernels; the conv entry sums its seven layers' numbers), then the
     result line ``{"ok": true, "device": {...}}`` last.
 """
@@ -303,6 +320,7 @@ from robust_speech_emotion_recognition_via_dynamic_asymmetric_distillation_in_no
     timing,
 )
 from robust_speech_emotion_recognition_via_dynamic_asymmetric_distillation_in_noisy_environments_tpu_torch.parallel import (
+    CleanFeatureBatch,
     FusedBatch,
     FusedConfig,
     init_fused,
@@ -561,7 +579,26 @@ def run_attention_phase() -> dict:
             results[(dtype, N, B)] = r
             print("kernel: " + json.dumps(r), flush=True)
     print(f"kernel: attention phase clocks {clocks.summary()}", flush=True)
+    print("kernel: tensor-parallel heads " + json.dumps(check_rank_heads()), flush=True)
     return results
+
+
+def check_rank_heads() -> dict:
+    """The kernel against its plain version on a tensor-parallel rank's
+    heads (H 6 at tp 2, H 3 at tp 4): the rank's own qkv projection
+    output, whose q, k and v views have an n-stride of 3 * H * 64."""
+    errs = {}
+    for H in (6, 3):
+        for dtype, N, B in ((torch.bfloat16, 199, TRAIN_B), (torch.bfloat16, 1499, 16),
+                            (torch.float32, 399, 16)):
+            gen = torch.Generator(device="cuda").manual_seed(H * N)
+            mask = attention_mask(B, N, seed=N)
+            q, k, v = attention_operands(B, H, N, 64, dtype, "encoder", gen)
+            out = attention.flash_attention(q, k, v, mask)
+            ref = attention.flash_attention_reference(q, k, v, mask)
+            what = f"H={H}, N={N}, B={B}, {dtype}"
+            errs[what] = attention_error(out, ref, mask, what)
+    return errs
 
 
 def synthetic_clip(n: int, seed: int) -> np.ndarray:
@@ -3229,13 +3266,354 @@ def run_d2v(root: str, manifests: str, ckpt: str) -> dict:
                 card_cpu=cpu, downstream=down)
 
 
+# ---------------------------------------------------------------------------
+# phase 13: the DAD paths over a (dp, tp) process grid
+
+# 13(a): every PAR_EVERY-th clip of phase 9's corpus, PAR_EPOCHS epochs
+PAR_EVERY, PAR_EPOCHS = 8, 2
+# 13(b): the fused step at a global batch of PAR_B clips of 4 s, PAR_STEPS steps
+PAR_B, PAR_STEPS = 16, 3
+
+
+def subset_manifest(manifests: str, out: str, every: int) -> int:
+    """Every ``every``-th clip of a manifest (train.tsv and its .emo
+    sidecar, line by line) in ``out``; returns the clip count."""
+    os.makedirs(out)
+    with open(f"{manifests}/train.tsv") as f:
+        root, *rows = f.read().splitlines()
+    with open(f"{manifests}/train.emo") as f:
+        emo = [line for line in f.read().splitlines() if line.strip()]
+    if len(emo) != len(rows):
+        raise AssertionError(f"manifest: {len(rows)} rows but {len(emo)} .emo lines")
+    keep = range(0, len(rows), every)
+    with open(f"{out}/train.tsv", "w") as f:
+        f.write(root + "\n" + "".join(rows[i] + "\n" for i in keep))
+    with open(f"{out}/train.emo", "w") as f:
+        f.write("".join(emo[i] + "\n" for i in keep))
+    return len(keep)
+
+
+def run_worker(spec: dict, path: str, torchrun: bool = False, env=None,
+               timeout: float = 300.0) -> subprocess.Popen:
+    """This script as a worker process (``--worker``) on ``spec``, under
+    ``torchrun`` (one process, the standalone rendezvous) if asked."""
+    with open(path, "w") as f:
+        json.dump(spec, f)
+    me = os.path.abspath(__file__)
+    cmd = ([sys.executable, "-m", "torch.distributed.run", "--standalone",
+            "--nproc_per_node", "1", me] if torchrun else [sys.executable, me])
+    return subprocess.Popen(cmd + ["--worker", path], env={**os.environ, **(env or {})},
+                            cwd=spec.get("cwd"))
+
+
+def wait_workers(procs: list, what: str, timeout: float = 300.0) -> None:
+    """Waits for every worker; kills the rest and raises if one fails."""
+    deadline = time.perf_counter() + timeout
+    try:
+        for p in procs:
+            rc = p.wait(timeout=max(1.0, deadline - time.perf_counter()))
+            if rc != 0:
+                raise AssertionError(f"{what}: worker exited with {rc}")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+
+
+def cli_worker(spec: dict) -> None:
+    """13(a) in a worker process: ``cli.main(argv)`` under a
+    ``TrainerProbe``, with the process group's backend recorded."""
+    import torch.distributed as dist
+
+    from robust_speech_emotion_recognition_via_dynamic_asymmetric_distillation_in_noisy_environments_tpu_torch.parallel import (
+        mesh as mesh_mod,
+    )
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    seen = {}
+    make = mesh_mod.make_mesh
+
+    def spy(*a, **kw):
+        m = make(*a, **kw)
+        seen.update(backend=dist.get_backend(), dp=m.dp, tp=m.tp, device=str(m.device))
+        return m
+
+    mesh_mod.make_mesh = spy
+    zero_kernel_launches()
+    probe = TrainerProbe(fused_trainer, FusedCrossDomainTrainer,
+                         {"make_fused_extract_train_step": batch_bytes,
+                          "make_resident_fused_step": index_bytes})
+    with probe:
+        t0 = time.perf_counter()
+        rc = cli.main(spec["argv"])
+        run_s = time.perf_counter() - t0
+    trainer = probe.trainers[-1]
+    ms = probe.step_ms(PAR_EPOCHS - 1)
+    out = dict(rc=rc, run_s=run_s, mesh=seen, resident=trainer._resident is not None,
+               results_dir=os.path.abspath(trainer.results_dir),
+               step_ms=float(np.median(ms)), step_ms_range=[min(ms), max(ms)], steps=len(ms) + 1,
+               launches=kernel_launches())
+    with open(spec["out"], "w") as f:
+        json.dump(out, f)
+
+
+def run_parallel_cli(root: str, manifests: str, ckpt: str) -> dict:
+    """13(a): ``cli dad --from-wav --dp 1`` under ``torchrun
+    --nproc_per_node 1`` (NCCL) against the same command without
+    ``torchrun`` and without ``--dp``, each in a worker process of its own,
+    on a subset of phase 9's corpus: the same history, best checkpoint and
+    test report, bit for bit."""
+    sub = f"{root}/par_manifests"
+    clips = subset_manifest(manifests, sub, PAR_EVERY)
+    argv = ["dad", "--corpus", "iemocap", "--from-wav", sub, "--checkpoint", ckpt,
+            "--fold", "0", "--epochs", str(PAR_EPOCHS), "--warmup-epochs", "1", "--snr", "10"]
+    runs = {}
+    for name, extra, torchrun in (("plain", [], False), ("nccl_world1", ["--dp", "1"], True)):
+        cwd = f"{root}/par_{name}"
+        os.makedirs(cwd)
+        spec = dict(kind="cli", argv=argv + extra, cwd=cwd, out=f"{cwd}/worker.json")
+        t0 = time.perf_counter()
+        wait_workers([run_worker(spec, f"{cwd}/spec.json", torchrun=torchrun)],
+                     f"13(a) {name}")
+        with open(spec["out"]) as f:
+            runs[name] = dict(json.load(f), wall_s=time.perf_counter() - t0)
+    plain, nccl = runs["plain"], runs["nccl_world1"]
+    if plain["rc"] != 0 or nccl["rc"] != 0:
+        raise AssertionError(f"13(a): cli dad returned {plain['rc']} / {nccl['rc']}")
+    if nccl["mesh"].get("backend") != "nccl" or (nccl["mesh"]["dp"], nccl["mesh"]["tp"]) != (1, 1):
+        raise AssertionError(f"13(a): expected a (1, 1) NCCL mesh, got {nccl['mesh']}")
+    if plain["mesh"] or not (plain["resident"] and nccl["resident"]):
+        raise AssertionError("13(a): the runs' meshes or resident corpora are not as meant")
+    same = {}
+    for rel in ("reports/training_history.json", "reports/FINAL_test_set_results.json"):
+        with open(f"{plain['results_dir']}/{rel}") as f, open(f"{nccl['results_dir']}/{rel}") as g:
+            a, b = json.load(f), json.load(g)
+        for d in (a, b):  # the final report's own clock
+            d.get("info", {}).pop("timestamp", None)
+        same[rel] = a == b
+    pth = "models/iemocap_cross_domain_best.pth"
+    a, b = (load_torch_file(f"{r['results_dir']}/{pth}") for r in (plain, nccl))
+    same[pth] = set(a) == set(b) and all(torch.equal(a[k], b[k]) for k in a)
+    if not all(same.values()):
+        raise AssertionError(f"13(a): the world-1 NCCL run differs from the plain run: {same}")
+    for r in (plain, nccl):
+        attn = r["launches"]["flash_attention"]
+        if attn <= 0 or attn % 12:
+            raise AssertionError(f"13(a): {attn} attention launches, not 12 per encoder pass")
+    out = dict(clips=clips, epochs=PAR_EPOCHS, bit_equal=same,
+               **{n: {k: r[k] for k in ("step_ms", "step_ms_range", "steps", "run_s", "wall_s",
+                                        "mesh", "launches")} for n, r in runs.items()})
+    print("parallel: world-1 " + json.dumps(out), flush=True)
+    return dict(launches=plain["launches"]["flash_attention"]
+                + nccl["launches"]["flash_attention"], **out)
+
+
+def parallel_inputs():
+    """13(b)'s full-width encoder (seeded fairseq weights, bf16, attention
+    through the kernel), its DAD config and a global batch pair: 4 s wavs,
+    the last noisy row a filler row. The same in every process."""
+    enc_cfg = EncoderConfig(dtype="bfloat16", use_flash_attention=True)
+    enc_sd = fairseq_to_torch_encoder(random_fairseq_state_dict(enc_cfg, seed=0), enc_cfg)
+    dad_cfg = dad_preset("iemocap", {f"dacp.{k}": v for k, v in DACP_OPEN.items()},
+                         batch_size=PAR_B, warmup_epochs=1, ecda_start_epoch=1)
+    cfg = FusedConfig(encoder=enc_cfg, dad=dad_cfg, inject_snr_db=10.0, cache_clean_features=True)
+    rng = np.random.default_rng(13)
+    T = TRAIN_T
+    lengths = rng.integers(T // 2, T + 1, PAR_B)
+    lengths[0] = T
+
+    def batch(labeled: bool, filler: bool) -> FusedBatch:
+        wav = (rng.normal(size=(PAR_B, T)) * 0.1).astype(np.float32)
+        mask = np.arange(T)[None, :] >= lengths[:, None]
+        valid = np.ones(PAR_B, bool)
+        if filler:
+            mask[-1], valid[-1] = True, False
+        wav[mask] = 0.0
+        labels = rng.integers(0, 4, PAR_B) if labeled else np.full(PAR_B, -1)
+        return FusedBatch(*(torch.from_numpy(x).cuda() for x in (wav, mask, labels, valid)),
+                          ids=torch.arange(PAR_B, device="cuda") if not labeled else None)
+
+    return enc_cfg, enc_sd, cfg, batch(True, False), batch(False, True)
+
+
+def parallel_steps(cfg, enc_sd, clean, noisy, mesh=None) -> dict:
+    """PAR_STEPS fused steps (epochs 2-4, after warmup: consistency and ECDA
+    weigh) from one seeded head state and a generator seeded alike; over
+    ``mesh`` the rank's view."""
+    from robust_speech_emotion_recognition_via_dynamic_asymmetric_distillation_in_noisy_environments_tpu_torch.parallel import (
+        place_fused,
+    )
+
+    from robust_speech_emotion_recognition_via_dynamic_asymmetric_distillation_in_noisy_environments_tpu_torch.dad import (
+        init_dad_train_state,
+    )
+
+    head, tx, state = init_dad_train_state(cfg.dad, torch.Generator("cuda").manual_seed(3),
+                                           device=torch.device("cuda", 0))
+    if mesh is None:
+        encoder, *_ = init_fused(cfg, enc_sd, device="cuda")
+    else:
+        encoder, state = place_fused(cfg, enc_sd, state, mesh)
+    step = make_fused_extract_train_step(encoder, head, tx, cfg, mesh)
+    gen = torch.Generator("cuda").manual_seed(4)
+    student0 = {k: v.float().cpu() for k, v in state.ssrl.student.items()}
+    zero_kernel_launches()
+    metrics, scores = [], []
+    for epoch in range(2, 2 + PAR_STEPS):
+        state, m = step(state, clean, noisy, StepScalars.for_epoch(cfg.dad, epoch),
+                        torch.zeros(4, device="cuda"), gen)
+        metrics.append({k: float(v) for k, v in m.items() if k != "tracking"})
+        scores.append(m["tracking"]["certainty_score"].float().cpu().numpy().tolist())
+    return dict(metrics=metrics, scores=scores, launches=kernel_launches()["flash_attention"],
+                update={k: v.float().cpu() - student0[k] for k, v in state.ssrl.student.items()},
+                dacp={k: v.float().cpu() for k, v in state.dacp._asdict().items()})
+
+
+def rank_worker(spec: dict) -> None:
+    """13(b) in one of two processes on ``cuda:0``, over gloo: collective
+    probes, extraction at (dp, tp) = (1, 2), fused steps at (2, 1) and
+    (1, 2). Writes its results with ``torch.save``."""
+    import torch.distributed as dist
+
+    from robust_speech_emotion_recognition_via_dynamic_asymmetric_distillation_in_noisy_environments_tpu_torch.parallel import (
+        make_mesh,
+    )
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    enc_cfg, enc_sd, cfg, clean, noisy = parallel_inputs()
+    cached = torch.load(spec["cached"])
+    clean_feats = CleanFeatureBatch(*(x.cuda() for x in cached))
+    out = {}
+    mesh = make_mesh(2, tp=1, backend="gloo", device="cuda:0")
+    probe = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        x = torch.full((4,), float(mesh.rank + 1), dtype=dtype, device="cuda")
+        parts = [torch.empty_like(x) for _ in range(2)]
+        dist.all_gather(parts, x)
+        dist.all_reduce(x)
+        probe[str(dtype)] = dict(all_reduce=x.float().cpu().tolist(),
+                                 all_gather=torch.cat(parts).float().cpu().tolist())
+    out["probe"] = probe
+    out["fused_21"] = parallel_steps(cfg, enc_sd, clean_feats, noisy, mesh)
+    mesh = make_mesh(2, tp=2, backend="gloo", device="cuda:0")
+    from robust_speech_emotion_recognition_via_dynamic_asymmetric_distillation_in_noisy_environments_tpu_torch.models.extract import (
+        FeatureExtractor as Extractor,
+    )
+
+    ex = Extractor(enc_cfg, enc_sd, batch_size=PAR_B, mesh=mesh)
+    zero_kernel_launches()
+    feats, _ = ex.forward_batch(noisy.wav, noisy.wav_mask)
+    out["extract_12"] = dict(feats=feats.cpu(), launches=kernel_launches()["flash_attention"],
+                             heads=ex.model.block_0.attn.num_heads)
+    del ex
+    out["fused_12"] = parallel_steps(cfg, enc_sd, clean_feats, noisy, mesh)
+    torch.save(out, spec["out"])
+    dist.destroy_process_group()
+
+
+def run_two_ranks(root: str) -> dict:
+    """13(b): two processes on the one card over gloo, through the library
+    API, held against one process at the global batch: extraction at
+    (dp, tp) = (1, 2) (attention through the kernel on 6 heads a rank) and
+    PAR_STEPS fused steps at (2, 1) and (1, 2)."""
+    enc_cfg, enc_sd, cfg, clean, noisy = parallel_inputs()
+    enc = FeatureExtractor(enc_cfg, enc_sd, batch_size=PAR_B)
+    cached = precompute_clean_features(enc.model, cfg, clean)
+    torch.save(tuple(x.cpu() for x in cached), f"{root}/cached.pt")
+    zero_kernel_launches()
+    want_feats, fmask = enc.forward_batch(noisy.wav, noisy.wav_mask)
+    single_launches = kernel_launches()["flash_attention"]
+    del enc
+    single = parallel_steps(cfg, enc_sd, cached, noisy)
+    torch.cuda.empty_cache()
+    port = str(_free_port())
+    procs, outs = [], []
+    for rank in range(2):
+        spec = dict(kind="ranks", cached=f"{root}/cached.pt", out=f"{root}/rank{rank}.pt")
+        env = dict(MASTER_ADDR="localhost", MASTER_PORT=port, WORLD_SIZE="2", RANK=str(rank),
+                   LOCAL_RANK="0")
+        procs.append(run_worker(spec, f"{root}/rank{rank}.json", env=env))
+        outs.append(spec["out"])
+    t0 = time.perf_counter()
+    wait_workers(procs, "13(b)")
+    ranks_s = time.perf_counter() - t0
+    got = [torch.load(o) for o in outs]
+    probe = got[0]["probe"]
+    for dtype, p in probe.items():
+        if p["all_reduce"] != [3.0] * 4 or p["all_gather"] != [1.0] * 4 + [2.0] * 4:
+            raise AssertionError(f"13(b): gloo collectives on CUDA tensors ({dtype}): {p}")
+    valid = ~fmask
+    errors, out = [], dict(probe="gloo all_reduce and all_gather of CUDA f32 and bf16 tensors",
+                           ranks_s=ranks_s, single_launches=single_launches)
+    for r, g in enumerate(got):
+        ex = g["extract_12"]
+        rel = [float((ex["feats"][i][valid[i].cpu()].float() - want_feats[i][valid[i]].float().cpu())
+                     .norm() / want_feats[i][valid[i]].float().norm()) for i in range(PAR_B - 1)]
+        if ex["heads"] != 6 or ex["launches"] != single_launches:
+            errors.append(f"rank {r} extraction: {ex['heads']} heads, {ex['launches']} launches")
+        if max(rel) > FEAT_REL_TOL_BF16:
+            errors.append(f"rank {r} extraction (1, 2): clip relative error {max(rel):.3e}")
+        out[f"rank{r}_extract_12"] = dict(heads=ex["heads"], launches=ex["launches"],
+                                          max_clip_rel_err=max(rel))
+        for case in ("fused_21", "fused_12"):
+            c = g[case]
+            keys = list(single["metrics"][0])
+            diffs = dict(
+                metrics_close=all(close([m[k] for m in c["metrics"]],
+                                        [m[k] for m in single["metrics"]], TRAINER_REL_TOL)
+                                  for k in keys),
+                metrics_max_abs_diff=max(abs(a[k] - b[k]) for a, b in
+                                         zip(c["metrics"], single["metrics"]) for k in keys),
+                scores_max_abs_diff=float(np.max(np.abs(np.asarray(c["scores"])
+                                                        - np.asarray(single["scores"])))),
+                dacp_max_abs_diff=max(float((c["dacp"][k] - single["dacp"][k]).abs().max())
+                                      for k in single["dacp"]),
+                update_rel_diff=math.sqrt(
+                    sum(float((c["update"][k] - u).norm()) ** 2
+                        for k, u in single["update"].items())
+                    / sum(float(u.norm()) ** 2 for u in single["update"].values())))
+            if not diffs["metrics_close"] or diffs["scores_max_abs_diff"] > DACP_TOL \
+                    or diffs["dacp_max_abs_diff"] > DACP_TOL \
+                    or diffs["update_rel_diff"] > UPDATE_REL_TOL:
+                errors.append(f"rank {r} {case}: {diffs}")
+            out[f"rank{r}_{case}"] = dict(diffs, launches=c["launches"])
+    if not max(m["consistency_loss"] for m in single["metrics"]) > 0:
+        errors.append("13(b): the consistency term never weighed")
+    if errors:
+        raise AssertionError("13(b): " + "; ".join(errors))
+    print("parallel: two ranks " + json.dumps(out), flush=True)
+    return dict(launches=sum(g["extract_12"]["launches"] + g["fused_21"]["launches"]
+                             + g["fused_12"]["launches"] for g in got), **out)
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def run_parallel(root: str, manifests: str, ckpt: str) -> dict:
+    """Phase 13: 13(a) then 13(b); the attention launches of both."""
+    t0 = time.perf_counter()
+    a = run_parallel_cli(root, manifests, ckpt)
+    b = run_two_ranks(root)
+    print(f"parallel: phase 13 in {time.perf_counter() - t0:.1f} s", flush=True)
+    return dict(launches=a["launches"] + b["launches"], world1=a, two_ranks=b)
+
+
 def run_stage1_and_fused(only_fused: bool = False, experiments: bool = True,
-                         d2v: bool = True) -> tuple:
-    """Phases 9-12 in one directory: the raw IEMOCAP-layout corpus and
+                         d2v: bool = True, fused: bool = True, parallel: bool = True) -> tuple:
+    """Phases 9-13 in one directory: the raw IEMOCAP-layout corpus and
     ``cli manifest`` (phase 10's first steps), the fused trainer on that
-    manifest (phase 9), then unless ``only_fused`` the rest of phase 10,
-    and with ``experiments`` phase 11 on its stores; with ``d2v`` phase 12
-    on phase 9's corpus and checkpoint."""
+    manifest (phase 9, unless not ``fused``), then unless ``only_fused`` the
+    rest of phase 10, and with ``experiments`` phase 11 on its stores; with
+    ``d2v`` phase 12 on phase 9's corpus and checkpoint; with ``parallel``
+    phase 13 on them."""
     with tempfile.TemporaryDirectory(prefix="dad_stage1_") as root, contextlib.chdir(root):
         t0 = time.perf_counter()
         corpus = write_iemocap_corpus(root, seed=0)
@@ -3251,13 +3629,14 @@ def run_stage1_and_fused(only_fused: bool = False, experiments: bool = True,
             raise AssertionError(f"manifest: {len(files)} clips, expected {corpus['clips']}")
         print(f"stage1: corpus {json.dumps(corpus)}, written in {write_s:.1f} s; cli manifest "
               f"{manifest_s:.2f} s", flush=True)
-        fused = run_fused_trainer(root, manifests, ckpt)
+        fused_info = run_fused_trainer(root, manifests, ckpt) if fused else None
         pre = exp = None
         if not only_fused:
-            pre = run_preprocess(root, corpus, manifests, ckpt, fused["best_path"])
+            pre = run_preprocess(root, corpus, manifests, ckpt, fused_info["best_path"])
             exp = run_experiments(root, manifests, ckpt, pre["stores"]) if experiments else None
         d2v_info = run_d2v(root, manifests, ckpt) if d2v else None
-    return fused, pre, exp, d2v_info
+        par = run_parallel(root, manifests, ckpt) if parallel else None
+    return fused_info, pre, exp, d2v_info, par
 
 
 T_START = time.perf_counter()
@@ -3266,7 +3645,7 @@ T_START = time.perf_counter()
 def parse_args(argv=None) -> argparse.Namespace:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--only", choices=("attention", "conv", "trainer", "fused", "preprocess",
-                                      "experiments", "d2v"),
+                                      "experiments", "d2v", "parallel"),
                    help="attention: build and run phases 1-3 only; conv: build conv.cu and "
                         "run phases 1, 2 and 6, then the conv grid comparison (to time two "
                         "checkouts in one call); trainer: build nothing, run phase 8 only; "
@@ -3275,7 +3654,10 @@ def parse_args(argv=None) -> argparse.Namespace:
                         "1, 2, 9 and 10 (phase 10 reads phase 9's checkpoint); experiments: "
                         "build attention.cu and run phases 1, 2, 9, 10 and 11 (phase 11 "
                         "reads phase 10's stores); d2v: build attention.cu and run phases "
-                        "1, 2, 9 and 12 (phase 12 reads phase 9's corpus and checkpoint)")
+                        "1, 2 and 12 on phase 9's corpus and checkpoint; "
+                        "parallel: build attention.cu, write phase 9's corpus and run phases "
+                        "1, 2 and 13")
+    p.add_argument("--worker", default=None, help=argparse.SUPPRESS)
     return p.parse_args(argv)
 
 
@@ -3284,6 +3666,11 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 1
+    if args.worker:  # phase 13's worker processes
+        with open(args.worker) as f:
+            spec = json.load(f)
+        (cli_worker if spec["kind"] == "cli" else rank_worker)(spec)
+        return 0
     smi = nvidia_smi_line()
     print(f"device: {smi} (torch {torch.__version__}, CUDA {torch.version.cuda})",
           flush=True)
@@ -3293,7 +3680,7 @@ def main(argv=None) -> int:
 
     sources = {None: SOURCES, "trainer": (), "fused": ("attention",),
                "preprocess": ("attention",), "experiments": ("attention",),
-               "d2v": ("attention",)}.get(args.only, (args.only,))
+               "d2v": ("attention",), "parallel": ("attention",)}.get(args.only, (args.only,))
     t0 = time.perf_counter()
     if sources:
         with concurrent.futures.ThreadPoolExecutor(len(sources)) as pool:
@@ -3307,9 +3694,11 @@ def main(argv=None) -> int:
 
     if args.only == "trainer":
         run_feature_trainer()
-    elif args.only in ("fused", "preprocess", "experiments", "d2v"):
-        run_stage1_and_fused(only_fused=args.only in ("fused", "d2v"),
-                             experiments=args.only == "experiments", d2v=args.only == "d2v")
+    elif args.only in ("fused", "preprocess", "experiments", "d2v", "parallel"):
+        run_stage1_and_fused(only_fused=args.only in ("fused", "d2v", "parallel"),
+                             experiments=args.only == "experiments", d2v=args.only == "d2v",
+                             fused=args.only not in ("d2v", "parallel"),
+                             parallel=args.only == "parallel")
     elif args.only == "conv":
         # the serving slice's encoder weights and the training slice's noisy batch
         enc_cfg = EncoderConfig(dtype="bfloat16", use_flash_attention=True)
@@ -3335,7 +3724,7 @@ def main(argv=None) -> int:
     del clean, noisy
     torch.cuda.empty_cache()
     run_feature_trainer()
-    fused, pre, exp, d2v_info = run_stage1_and_fused()
+    fused, pre, exp, d2v_info, par = run_stage1_and_fused()
 
     def entry(name, source, replaces, launches, r):
         return dict(name=name, route="cuda", source=f"{PORT_PKG}/csrc/{source}",
@@ -3354,7 +3743,7 @@ def main(argv=None) -> int:
     kernels = [
         entry("flash_attention", "attention.cu", f"{JAX_PKG}/ops/attention.py:28",
               slice_info["launches"] + train["launches"] + fused["launches"] + pre["launches"]
-              + exp["launches"] + d2v_info["launches"], step_attn),
+              + exp["launches"] + d2v_info["launches"] + par["launches"], step_attn),
         entry("fused_layernorm", "fused_norm.cu", f"{JAX_PKG}/ops/fused_norm.py:44",
               norm["launches"]["fused_layernorm"], norm["rows"][("ln_gelu", torch.bfloat16)]),
         entry("fused_conv_ln_gelu", "conv.cu", f"{JAX_PKG}/ops/conv.py:86",

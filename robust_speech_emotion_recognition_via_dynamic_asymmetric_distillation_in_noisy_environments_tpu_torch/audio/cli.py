@@ -126,7 +126,7 @@ def inject(args: argparse.Namespace) -> int:
             return 2
         ok, results = verify_noise_injection(
             args.input_root, args.output_root, done, args.snr_db,
-            tolerance_db=args.tolerance,
+            tolerance_db=getattr(args, "tolerance", 2.0),
         )
         mean_snr = float(np.mean([s for _, s in results]))
         logger.info("verification %s; mean achieved SNR %.2f dB",
@@ -135,8 +135,10 @@ def inject(args: argparse.Namespace) -> int:
     return 0
 
 
-def add_inject_args(p: argparse.ArgumentParser) -> None:
-    """The flags of ``inject``, shared with the package's ``cli inject``."""
+def add_inject_args(p: argparse.ArgumentParser, tolerance: bool = True) -> None:
+    """The flags of ``inject``, shared with the package's ``cli inject``,
+    which (as the JAX package's) has no ``--tolerance`` and verifies
+    within 2 dB."""
     p.add_argument("--input_root", required=True)
     p.add_argument("--output_root", required=True)
     p.add_argument("--snr_db", type=float, default=20.0)
@@ -147,7 +149,8 @@ def add_inject_args(p: argparse.ArgumentParser) -> None:
     p.add_argument("--noise_type", default="babble")
     p.add_argument("--seed", type=int, default=42)
     p.add_argument("--verify", action="store_true")
-    p.add_argument("--tolerance", type=float, default=2.0)
+    if tolerance:
+        p.add_argument("--tolerance", type=float, default=2.0)
     p.add_argument("--engine", choices=["numpy", "native"], default="numpy",
                    help="numpy = the reference's serial loop; native = the threaded "
                         "C++ engine (SNR-exact; its library is built on first use)")

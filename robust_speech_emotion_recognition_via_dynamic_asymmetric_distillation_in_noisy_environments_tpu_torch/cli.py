@@ -18,8 +18,8 @@ Ported so far, each with the JAX package's flags plus ``--device`` where it
 touches a tensor (default ``cuda``; ``cpu`` to run on the CPU):
 - stage 1, preprocessing: ``manifest`` (IEMOCAP, CASIA, EMODB),
   ``fix-format`` (16 kHz mono), ``inject`` (numpy or native C++ engine,
-  ``--verify``), ``extract`` (the feature store; ``--dp``/``--tp`` exit
-  with status 2) and ``preprocess`` (a noise grid of inject + verify +
+  ``--verify``), ``extract`` (the feature store; ``--dp``/``--tp`` over a
+  process grid) and ``preprocess`` (a noise grid of inject + verify +
   extract, the encoder loaded once);
 - ``infer``: a DAD checkpoint over a feature store's fold test split or
   all of it;
@@ -43,8 +43,17 @@ unless ``--encoder-json`` sets ``use_flash_attention``. The trainers hold
 the fold's training corpus on the device when it fits (``--resident
 auto``, the default; ``on`` / ``off``). ``dad --fold all``, ``ablation``
 and ``sensitivity`` log a failed fold or experiment and go on, then exit
-with status 1. ``--dp``/``--tp`` (multi-GPU) exit with status 2, naming the
-ROADMAP.md item that brings them.
+with status 1.
+
+``--dp``/``--tp`` keep the JAX meaning (dp 0 is off; ``dad`` on features
+takes dp only) and run one process a device under ``torchrun``, with
+max(dp, 1) * tp processes:
+
+    torchrun --standalone --nproc_per_node 2 -m <pkg> dad --from-wav ... --dp 2
+
+Outside ``torchrun`` or at another world size the command exits with
+status 2 and prints the launch to use; ``d2v-pretrain --dp/--tp`` exits
+with status 2 (ROADMAP.md §1 item 9.5).
 """
 
 from __future__ import annotations
@@ -133,7 +142,7 @@ def _add_stage1_parsers(sub) -> None:
     p.set_defaults(func=_cmd_manifest)
 
     p = sub.add_parser("inject", help="offline noise injection over a manifest's wav tree")
-    add_inject_args(p)
+    add_inject_args(p, tolerance=False)
     p.set_defaults(func=inject)
 
     p = sub.add_parser("extract", help="emotion2vec feature store of a manifest")
@@ -273,11 +282,9 @@ def _add_pretrain_parser(sub) -> None:
 
 def _cmd_dad(args):
     from .configs import dad_preset
+    from .parallel.mesh import flag_mesh
     from .train import CrossDomainTrainer, run_cv
-    from .train.dad_trainer import MESH_NOT_PORTED
 
-    if args.dp > 0 or args.tp > 1:
-        return _refuse(f"--dp/--tp: {MESH_NOT_PORTED}")
     if args.from_wav:
         return _cmd_dad_fused(args)
     if not (args.clean and args.noisy):
@@ -285,12 +292,14 @@ def _cmd_dad(args):
                          "(or use --from-wav for fused training)")
     cfg = dad_preset(args.corpus, clean_data_dir=args.clean, noisy_data_dir=args.noisy,
                      **_sweep_cfg_kw(args))
-    common = dict(experiment_name=args.name, scan_chunk=args.scan_chunk,
-                  prefetch_depth=args.prefetch_depth, transfer_dtype=args.transfer_dtype,
-                  resident=RESIDENT[args.resident], device=args.device)
-    if args.fold == "all":
-        return _sweep_rc(run_cv(cfg, **common))
-    else:
+    # the feature trainer is dp only (JAX cli.py:213-217); a mesh runs per step
+    with flag_mesh(args.dp, 1, args.device, getattr(args, "argv", ["dad"])) as mesh:
+        common = dict(experiment_name=args.name,
+                      scan_chunk=0 if mesh is not None else args.scan_chunk,
+                      prefetch_depth=args.prefetch_depth, transfer_dtype=args.transfer_dtype,
+                      resident=RESIDENT[args.resident], mesh=mesh, device=args.device)
+        if args.fold == "all":
+            return _sweep_rc(run_cv(cfg, **common))
         CrossDomainTrainer(cfg, fold=int(args.fold), **common).train(resume=args.resume)
     return 0
 
@@ -334,23 +343,26 @@ def _cmd_dad_fused(args):
     """The fused wav->train mode: injection, extraction and the DAD update
     in each step (``train/fused_trainer.py``)."""
     from .configs import dad_preset
+    from .parallel.mesh import flag_mesh
     from .train.fused_trainer import FusedCrossDomainTrainer, run_fused_cv
 
-    cfg = dad_preset(args.corpus, **_sweep_cfg_kw(args))
-    enc_cfg, enc_params, fused_cfg = _build_fused_from_args(args, cfg)
-    common = dict(
-        fused_cfg=fused_cfg,
-        noise_root=args.noise_root,
-        experiment_name=args.name,
-        prefetch_depth=args.prefetch_depth,
-        transfer_dtype=args.transfer_dtype,
-        resident=RESIDENT[args.resident],
-        scan_chunk=args.scan_chunk,
-        device=args.device,
-    )
-    if args.fold == "all":
-        return _sweep_rc(run_fused_cv(cfg, args.from_wav, enc_cfg, enc_params, **common))
-    else:
+    with flag_mesh(args.dp, args.tp, args.device, getattr(args, "argv", ["dad"])) as mesh:
+        cfg = dad_preset(args.corpus, **_sweep_cfg_kw(args))
+        enc_cfg, enc_params, fused_cfg = _build_fused_from_args(args, cfg)
+        common = dict(
+            fused_cfg=fused_cfg,
+            noise_root=args.noise_root,
+            experiment_name=args.name,
+            prefetch_depth=args.prefetch_depth,
+            transfer_dtype=args.transfer_dtype,
+            resident=RESIDENT[args.resident],
+            # per step under a mesh (JAX cli.py:182-183)
+            scan_chunk=0 if mesh is not None else args.scan_chunk,
+            mesh=mesh,
+            device=args.device,
+        )
+        if args.fold == "all":
+            return _sweep_rc(run_fused_cv(cfg, args.from_wav, enc_cfg, enc_params, **common))
         FusedCrossDomainTrainer(cfg, args.from_wav, enc_cfg, enc_params, fold=int(args.fold),
                                 **common).train(resume=args.resume)
     return 0
@@ -611,9 +623,10 @@ def _add_dad_parser(sub) -> None:
     p.add_argument("--noise-type", default="babble",
                    help="NOISEX type for --noise-mode fixed")
     p.add_argument("--dp", type=int, default=0,
-                   help="data-parallel size (multi-GPU, not ported yet: > 0 exits 2)")
+                   help="data-parallel mesh size (0 = off); under torchrun with "
+                        "max(dp, 1) * tp processes")
     p.add_argument("--tp", type=int, default=1,
-                   help="tensor-parallel size (multi-GPU, not ported yet: > 1 exits 2)")
+                   help="encoder tensor-parallel size (fused mode)")
     p.add_argument("--weights", default=None, help="pretrain .ckpt")
     p.add_argument("--fold", default="0", help="0-based fold index or 'all'")
     p.add_argument("--epochs", type=int, default=500)
@@ -722,8 +735,10 @@ def _add_d2v_parsers(sub) -> None:
     p.add_argument("--log-every", type=int, default=50)
     p.add_argument("--checkpoint-every", type=int, default=1000)
     p.add_argument("--resume", action="store_true")
-    p.add_argument("--dp", type=int, default=0, help="data-parallel size (not ported)")
-    p.add_argument("--tp", type=int, default=1, help="tensor-parallel size (not ported)")
+    p.add_argument("--dp", type=int, default=0,
+                   help="data-parallel size (not ported yet: > 0 exits 2)")
+    p.add_argument("--tp", type=int, default=1,
+                   help="tensor-parallel size (not ported yet: > 1 exits 2)")
     p.add_argument("--binarized", action="store_true",
                    help="--manifests point at packed stores from `d2v-pack`")
     p.add_argument("--prng", choices=["threefry", "rbg"], default="threefry",
@@ -806,10 +821,16 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def main(argv=None) -> int:
+    from .parallel.mesh import LaunchError
+
     parser = build_parser()
+    argv = sys.argv[1:] if argv is None else list(argv)
     args = parser.parse_args(argv)
+    args.argv = argv  # for the torchrun launch line of --dp/--tp
     try:
         return args.func(args)
+    except LaunchError as e:
+        return _refuse(str(e))
     except (FileNotFoundError, ValueError, KeyError) as e:
         parser.exit(2, f"{parser.prog}: error: {e}\n")
 

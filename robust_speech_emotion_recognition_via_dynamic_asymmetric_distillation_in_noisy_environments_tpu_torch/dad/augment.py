@@ -11,6 +11,10 @@ Reference semantics:
 Draws come from ``generator`` (on x's device) unless they are passed in
 ready-made, which is how the tests feed both frameworks the same numbers.
 Every shape is fixed and nothing is read back to the host.
+
+``t_valid`` gives the batch's longest valid length where ``x`` holds only
+some rows of the batch (a data-parallel rank's, ``parallel/sharded.py``):
+the temporal mask's length is the whole batch's.
 """
 
 from __future__ import annotations
@@ -57,12 +61,21 @@ def draw_strong(generator: Optional[torch.Generator], x: torch.Tensor,
                 cfg: AugmentConfig,
                 padding_mask: Optional[torch.Tensor] = None) -> StrongDraws:
     """The strong view's random numbers, drawn on x's device."""
-    B, _T, D = x.shape
-    noise = torch.randn(x.shape, generator=generator, device=x.device, dtype=x.dtype)
-    feat_u = torch.rand(D, generator=generator, device=x.device)
+    return draw_strong_shaped(generator, x.shape, x.dtype, x.device, cfg,
+                              _valid_max(x, padding_mask))
+
+
+def draw_strong_shaped(generator: Optional[torch.Generator], shape, dtype, device,
+                       cfg: AugmentConfig, t_valid: torch.Tensor) -> StrongDraws:
+    """``draw_strong`` for a (B, T, D) batch given by its shape and its
+    longest valid length."""
+    B, _T, D = shape
+    noise = torch.randn(shape, generator=generator, device=device, dtype=dtype)
+    feat_u = torch.rand(D, generator=generator, device=device)
     # uniform integer in [0, hi) without reading hi back to the host
-    hi = start_upper_bound(x, cfg, padding_mask)
-    u = torch.rand(B, generator=generator, device=x.device, dtype=torch.float64)
+    mask_len = _mask_length(t_valid, cfg.temporal_mask_ratio)
+    hi = torch.clamp(t_valid - mask_len + 1, min=1)
+    u = torch.rand(B, generator=generator, device=device, dtype=torch.float64)
     start = torch.minimum((u * hi).long(), hi - 1)
     return StrongDraws(noise, feat_u, start)
 
@@ -73,11 +86,15 @@ def strong_augment(
     cfg: AugmentConfig,
     padding_mask: Optional[torch.Tensor] = None,
     draws: Optional[StrongDraws] = None,
+    t_valid: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """x: (B, T, D); padding_mask (B, T) bool True=pad (optional: without it
-    the padded length T stands in for the batch max)."""
+    the padded length T stands in for the batch max); ``t_valid`` overrides
+    the batch max."""
+    if t_valid is None:
+        t_valid = _valid_max(x, padding_mask)
     if draws is None:
-        draws = draw_strong(generator, x, cfg, padding_mask)
+        draws = draw_strong_shaped(generator, x.shape, x.dtype, x.device, cfg, t_valid)
     _B, T, _D = x.shape
 
     out = x + draws.noise * cfg.strong_noise_std
@@ -86,7 +103,7 @@ def strong_augment(
         out = out * (draws.feat_u > cfg.feature_dropout_rate).to(x.dtype)
 
     if cfg.temporal_mask_ratio > 0:
-        mask_len = _mask_length(_valid_max(x, padding_mask), cfg.temporal_mask_ratio)
+        mask_len = _mask_length(t_valid, cfg.temporal_mask_ratio)
         start = draws.start.to(x.device)[:, None]
         idx = torch.arange(T, device=x.device)[None, :]
         tmask = (idx >= start) & (idx < start + mask_len) & (mask_len > 0)

@@ -163,12 +163,17 @@ def smoothed_ce(logits: torch.Tensor, labels: torch.Tensor, row_valid: torch.Ten
 
 class StepDraws(NamedTuple):
     """A step's random numbers given ready-made (the tests feed the JAX
-    draws here); a field left None is drawn from the step's generator."""
+    draws here, and a data-parallel rank its rows of the global batch's
+    draws); a field left None is drawn from the step's generator."""
 
     inject: Optional[torch.Tensor] = None  # (B, T) standard normal (fused step)
     weak: Optional[torch.Tensor] = None  # (B, T', D) standard normal
     strong: Optional[StrongDraws] = None
     bank_offsets: Optional[torch.Tensor] = None  # (B,) circular offsets into the bank (fused)
+    bank_types: Optional[torch.Tensor] = None  # (B,) bank rows, random-type mode (fused)
+    snr_index: Optional[torch.Tensor] = None  # (B,) index into inject_snr_choices (fused)
+    clean_keep: Optional[torch.Tensor] = None  # (B, hidden) student dropout, clean pass
+    strong_keep: Optional[torch.Tensor] = None  # (B, hidden) student dropout, strong pass
 
 
 def draw_feature_step(generator: Optional[torch.Generator], feats: torch.Tensor,
@@ -179,6 +184,107 @@ def draw_feature_step(generator: Optional[torch.Generator], feats: torch.Tensor,
     weak = torch.randn(feats.shape, generator=generator, device=feats.device,
                        dtype=feats.dtype)
     return StepDraws(weak=weak, strong=draw_strong(generator, feats, cfg, padding_mask))
+
+
+class HeadOutputs(NamedTuple):
+    """The head's per-row outputs of one step: what the losses read."""
+
+    clean_logits: torch.Tensor  # (B, C) student on the clean features
+    clean_emb: torch.Tensor  # (B, hidden)
+    teacher_probs: torch.Tensor  # (B, C) teacher on the weak view, no graph
+    student_logits: torch.Tensor  # (B, C) student on the strong view
+    strong_emb: torch.Tensor  # (B, hidden)
+
+
+def head_outputs(
+    head: DADHead,
+    cfg: DADConfig,
+    student: Params,
+    teacher: Params,
+    clean_feats: torch.Tensor, clean_fmask: torch.Tensor,
+    noisy_feats: torch.Tensor, noisy_fmask: torch.Tensor,
+    generator: Optional[torch.Generator],
+    draws: StepDraws,
+    t_valid: Optional[torch.Tensor] = None,
+) -> HeadOutputs:
+    """The student on the clean features, the weak and strong views of the
+    noisy features, the teacher on the weak view and the student on the
+    strong one. Row by row, except the strong view's temporal mask, whose
+    length is the batch's longest valid length (``t_valid`` where the rows
+    are a part of the batch). Draws not in ``draws`` come from
+    ``generator`` in this order: clean dropout, weak, strong, strong-pass
+    dropout."""
+    train = dict(deterministic=False, generator=generator)
+    clean_logits, clean_emb = functional_call(
+        head, student, (clean_feats, clean_fmask), dict(train, keep=draws.clean_keep))
+    weak = weak_augment(generator, noisy_feats, cfg.augment, noise=draws.weak)
+    strong = strong_augment(generator, noisy_feats, cfg.augment, padding_mask=noisy_fmask,
+                            draws=draws.strong, t_valid=t_valid)
+    # teacher: no graph, no dropout
+    with torch.no_grad():
+        teacher_logits, _ = functional_call(head, teacher, (weak, noisy_fmask))
+        teacher_probs = torch.softmax(teacher_logits, dim=-1)
+    student_logits, strong_emb = functional_call(
+        head, student, (strong, noisy_fmask), dict(train, keep=draws.strong_keep))
+    return HeadOutputs(clean_logits, clean_emb, teacher_probs, student_logits, strong_emb)
+
+
+def losses_from_outputs(
+    cfg: DADConfig,
+    out: HeadOutputs,
+    dacp_state: DACPState,
+    clean_labels: torch.Tensor, clean_valid: torch.Tensor,
+    noisy_valid: torch.Tensor, noisy_ids: Optional[torch.Tensor],
+    scalars: StepScalars,
+    anchors: torch.Tensor,
+):
+    """The batch-level half of the step: CE, the DACP mask, the masked KL
+    consistency and ECDA over the whole batch's rows. Returns (total,
+    new_dacp, metrics, tracking)."""
+    smoothing = cfg.label_smoothing_factor if cfg.use_label_smoothing else 0.0
+    ce = smoothed_ce(out.clean_logits, clean_labels, clean_valid, smoothing)
+    teacher_probs = out.teacher_probs
+    if cfg.dacp.use_dacp:
+        new_dacp, mask, scores, wce = dacp_mask(
+            dacp_state, teacher_probs, noisy_valid, scalars.gamma_e, anchors, cfg.dacp)
+    else:
+        mask, scores, wce = fixed_threshold_mask(
+            teacher_probs, noisy_valid, cfg.dacp.fixed_confidence_threshold)
+        new_dacp = dacp_state
+
+    mask_f = mask.to(torch.float32)
+    count = mask_f.sum()
+    preds = teacher_probs.argmax(dim=-1)
+    zero = torch.zeros((), dtype=torch.float32, device=teacher_probs.device)
+
+    # warmup: only CE contributes and the DACP state stays where it was
+    consistency = ecda = zero
+    if scalars.warmup:
+        new_dacp = dacp_state
+    else:
+        student_logp = torch.log_softmax(out.student_logits, dim=-1)
+        kl = torch.sum(teacher_probs * (torch.log(teacher_probs + 1e-12) - student_logp), dim=-1)
+        consistency = torch.where(count > 1, torch.sum(kl * mask_f) / (count + 1e-8), zero)
+        if cfg.ecda.use_ecda and scalars.w_ecda > 0:
+            ecda = ecda_loss(out.clean_emb, out.strong_emb, clean_labels, preds, mask, scores,
+                             wce, clean_valid, noisy_valid, cfg.ecda)
+            ecda = torch.where(count > 1, ecda, zero)
+
+    total = ce + scalars.w_consistency * consistency + scalars.w_ecda * ecda
+    metrics = {
+        "total_loss": total,
+        "supervised_ce_loss": ce,
+        "consistency_loss": consistency,
+        "ecda_loss": ecda,
+        "high_confidence_count": count,
+    }
+    tracking = {
+        "ids": noisy_ids,
+        "pseudo_label": preds,
+        "certainty_score": scores,
+        "is_masked_in": mask,
+    }
+    return total, new_dacp, metrics, tracking
 
 
 def dad_losses(
@@ -199,73 +305,22 @@ def dad_losses(
     """The loss body that the feature-level and the fused step share.
     Returns (total, new_dacp, metrics, tracking); gradients reach only
     ``student``."""
-    smoothing = cfg.label_smoothing_factor if cfg.use_label_smoothing else 0.0
-    train = dict(deterministic=False, generator=generator)
-
-    # supervised CE on the clean stream
-    clean_logits, clean_emb = functional_call(head, student, (clean_feats, clean_fmask), train)
-    ce = smoothed_ce(clean_logits, clean_labels, clean_valid, smoothing)
-
-    # weak/strong views of the same noisy features
-    weak = weak_augment(generator, noisy_feats, cfg.augment, noise=draws.weak)
-    strong = strong_augment(generator, noisy_feats, cfg.augment,
-                            padding_mask=noisy_fmask, draws=draws.strong)
-
-    # teacher: no graph, no dropout
-    with torch.no_grad():
-        teacher_logits, _ = functional_call(head, teacher, (weak, noisy_fmask))
-        teacher_probs = torch.softmax(teacher_logits, dim=-1)
-
-    if cfg.dacp.use_dacp:
-        new_dacp, mask, scores, wce = dacp_mask(
-            dacp_state, teacher_probs, noisy_valid, scalars.gamma_e, anchors, cfg.dacp)
-    else:
-        mask, scores, wce = fixed_threshold_mask(
-            teacher_probs, noisy_valid, cfg.dacp.fixed_confidence_threshold)
-        new_dacp = dacp_state
-
-    student_logits, strong_emb = functional_call(head, student, (strong, noisy_fmask), train)
-    mask_f = mask.to(torch.float32)
-    count = mask_f.sum()
-    preds = teacher_probs.argmax(dim=-1)
-    zero = torch.zeros((), dtype=torch.float32, device=clean_feats.device)
-
-    # warmup: only CE contributes and the DACP state stays where it was
-    consistency = ecda = zero
-    if scalars.warmup:
-        new_dacp = dacp_state
-    else:
-        student_logp = torch.log_softmax(student_logits, dim=-1)
-        kl = torch.sum(teacher_probs * (torch.log(teacher_probs + 1e-12) - student_logp), dim=-1)
-        consistency = torch.where(count > 1, torch.sum(kl * mask_f) / (count + 1e-8), zero)
-        if cfg.ecda.use_ecda and scalars.w_ecda > 0:
-            ecda = ecda_loss(clean_emb, strong_emb, clean_labels, preds, mask, scores, wce,
-                             clean_valid, noisy_valid, cfg.ecda)
-            ecda = torch.where(count > 1, ecda, zero)
-
-    total = ce + scalars.w_consistency * consistency + scalars.w_ecda * ecda
-    metrics = {
-        "total_loss": total,
-        "supervised_ce_loss": ce,
-        "consistency_loss": consistency,
-        "ecda_loss": ecda,
-        "high_confidence_count": count,
-    }
-    tracking = {
-        "ids": noisy_ids,
-        "pseudo_label": preds,
-        "certainty_score": scores,
-        "is_masked_in": mask,
-    }
-    return total, new_dacp, metrics, tracking
+    out = head_outputs(head, cfg, student, teacher, clean_feats, clean_fmask, noisy_feats,
+                       noisy_fmask, generator, draws)
+    return losses_from_outputs(cfg, out, dacp_state, clean_labels, clean_valid, noisy_valid,
+                               noisy_ids, scalars, anchors)
 
 
 def student_update(state: DADTrainState, total: torch.Tensor, student: Params,
                    new_dacp: DACPState, scalars: StepScalars, tx: Optimizer,
-                   cfg: DADConfig) -> DADTrainState:
+                   cfg: DADConfig,
+                   reduce_grads: Optional[Callable[[Params], Params]] = None) -> DADTrainState:
     """Backward to the student, the optimizer step, then the teacher EMA
-    (post-warmup only)."""
+    (post-warmup only). ``reduce_grads`` combines the gradients of
+    data-parallel ranks before the optimizer sees them."""
     grads = dict(zip(student, torch.autograd.grad(total, list(student.values()))))
+    if reduce_grads is not None:
+        grads = reduce_grads(grads)
     params = {k: v.detach() for k, v in student.items()}
     updates, new_opt = tx.update(grads, state.opt_state, params)
     new_student = apply_updates(params, updates)

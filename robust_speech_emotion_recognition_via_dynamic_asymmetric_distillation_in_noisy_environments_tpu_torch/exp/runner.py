@@ -23,7 +23,7 @@ import torch
 
 from ..configs import DADConfig, apply_overrides
 from ..train.dad_trainer import CrossDomainTrainer
-from ..utils import MESH_NOT_PORTED, get_logger, resolve_device
+from ..utils import get_logger, resolve_device
 
 logger = get_logger(__name__)
 
@@ -156,8 +156,6 @@ def run_single_fused_experiment(
         refresh_noisy_domain,
     )
 
-    if mesh is not None:
-        raise NotImplementedError(MESH_NOT_PORTED)
     dad_ov, inj = split_fused_overrides(overrides)
     cfg = apply_overrides(base_cfg, dad_ov)
     fused_cfg = base_fused_cfg
@@ -189,9 +187,10 @@ def run_single_fused_experiment(
         prefetch_depth=prefetch_depth,
         transfer_dtype=transfer_dtype,
         shared=shared,
+        mesh=mesh,
         device=device,
         **dict(trainer_kw or {}),
-    ), device)
+    ), device if mesh is None else mesh.device)
     return _result_row(name, overrides, out)
 
 

@@ -10,6 +10,10 @@ Serving and the DAD step run the encoder frozen (``deterministic=True``);
 layerdrop (a whole block skipped with probability ``layerdrop``, one draw
 per block), drawn from the caller's generator. ``normalize_wav`` is the
 waveform layer norm the extraction CLI applies before the encoder.
+
+``tp_group`` builds the encoder of one tensor-parallel rank (frozen,
+forward only): its blocks hold the rank's heads and MLP share
+(``parallel/mesh.py::shard_encoder_state``), the rest is replicated.
 """
 
 from __future__ import annotations
@@ -17,6 +21,7 @@ from __future__ import annotations
 from typing import Optional, Tuple
 
 import torch
+import torch.distributed as dist
 import torch.utils.checkpoint
 from torch import nn
 from torch.func import functional_call
@@ -58,9 +63,10 @@ def normalize_wav(wav: torch.Tensor,
 
 
 class Emotion2vecEncoder(nn.Module):
-    def __init__(self, cfg: EncoderConfig):
+    def __init__(self, cfg: EncoderConfig, tp_group=None):
         super().__init__()
         self.cfg = cfg
+        self.tp_group = tp_group
         dtype = torch_dtype(cfg.dtype)
         self.dtype = dtype
         feat_dim = cfg.conv_feature_layers[-1][0]
@@ -80,7 +86,7 @@ class Emotion2vecEncoder(nn.Module):
         names = [f"prenet_block_{i}" for i in range(cfg.prenet_depth)]
         names += [f"block_{i}" for i in range(cfg.depth)]
         for name in names:
-            self.add_module(name, make_block(cfg))
+            self.add_module(name, make_block(cfg, tp_group=tp_group))
         self.block_names = tuple(names)
 
     def forward(
@@ -104,6 +110,9 @@ class Emotion2vecEncoder(nn.Module):
         bias = None
         if cfg.use_alibi_encoder:
             bias = alibi_bias(x.shape[1], cfg.num_heads, cfg.alibi_scale, self.dtype, x.device)
+            if self.tp_group is not None:  # this rank's heads
+                bias = bias.chunk(dist.get_world_size(self.tp_group), dim=1)[
+                    dist.get_rank(self.tp_group)]
 
         # prenet: post-LN => LN applied BEFORE the blocks
         x = self.prenet_ln(x).to(self.dtype)
@@ -115,8 +124,10 @@ class Emotion2vecEncoder(nn.Module):
         return x, frame_mask
 
 
-def make_block(cfg: EncoderConfig, return_ffn_target: bool = False) -> AltBlock:
-    """One transformer block of the encoder's configuration."""
+def make_block(cfg: EncoderConfig, return_ffn_target: bool = False,
+               tp_group=None) -> AltBlock:
+    """One transformer block of the encoder's configuration (a
+    tensor-parallel rank's share of it with ``tp_group``)."""
     return AltBlock(
         cfg.embed_dim, cfg.num_heads, mlp_ratio=cfg.mlp_ratio,
         drop=cfg.encoder_dropout, attn_drop=cfg.attention_dropout,
@@ -125,7 +136,7 @@ def make_block(cfg: EncoderConfig, return_ffn_target: bool = False) -> AltBlock:
         dtype=torch_dtype(cfg.dtype), use_flash=cfg.use_flash_attention,
         gelu_approximate=cfg.gelu_approximate, fast_ln=cfg.fast_ln,
         fast_softmax=cfg.fast_softmax, cosine_attention=cfg.cosine_attention,
-        return_ffn_target=return_ffn_target,
+        return_ffn_target=return_ffn_target, tp_group=tp_group,
     )
 
 

@@ -8,6 +8,11 @@ serves the serving path and the fused trainer's startup. Output of
 ``extract_manifest``: ``<save_dir>/<split>.npy`` (float32 rows) +
 ``.lengths``, with the label sidecars copied through, in the JAX package's
 layout byte for byte (the reference's NpyAppendArray layout).
+
+Over a (dp, tp) mesh (``parallel/mesh.py``; ``extract --dp/--tp`` under
+``torchrun``) each batch is split over dp, each rank runs its tp shard of
+the encoder on its rows, and the features are gathered over dp, so every
+rank returns every clip's features; only rank 0 writes the store.
 """
 
 from __future__ import annotations
@@ -22,9 +27,9 @@ import torch
 
 from ..configs import EncoderConfig, encoder_config
 from ..data.manifests import read_manifest
-from ..utils import MESH_NOT_PORTED, get_logger, resolve_device
-from .emotion2vec import Emotion2vecEncoder, normalize_wav
-from .layers import conv_out_lengths
+from ..utils import get_logger, resolve_device
+from .emotion2vec import normalize_wav
+from .layers import conv_out_lengths, convert_padding_mask
 
 logger = get_logger(__name__)
 
@@ -39,7 +44,8 @@ def _bucket(n: int, buckets: Sequence[int]) -> int:
 
 
 class FeatureExtractor:
-    """Batched emotion2vec feature extractor on one device."""
+    """Batched emotion2vec feature extractor on one device, or over a
+    mesh."""
 
     def __init__(
         self,
@@ -50,28 +56,52 @@ class FeatureExtractor:
         device: Union[str, torch.device] = "cuda",
         mesh=None,
     ):
-        """``state_dict``: the port's encoder layout, from
+        """``state_dict``: the port's full encoder layout, from
         ``convert.fairseq_to_torch_encoder`` or ``flax_encoder_to_torch``.
-        ``mesh`` (multi-GPU extraction) is not ported and raises."""
+        ``mesh`` (a ``parallel.make_mesh`` grid): batches over dp, the
+        encoder over tp, on the mesh's device; ``batch_size`` must divide
+        by dp."""
+        from ..parallel.fused import frozen_encoder
+
         if mesh is not None:
-            raise NotImplementedError(MESH_NOT_PORTED)
+            if batch_size % mesh.dp != 0:
+                raise ValueError(f"batch_size={batch_size} must divide by dp={mesh.dp}")
+            device = mesh.device
+        self.mesh = mesh
         self.device = resolve_device(device)
         self.cfg = cfg
         self.batch_size = batch_size
         self.buckets = tuple(buckets)
-        with torch.device(self.device):
-            self.model = Emotion2vecEncoder(cfg)
-        self.model.load_state_dict(state_dict)
-        self.model.eval().requires_grad_(False)
+        self.model = frozen_encoder(cfg, state_dict, self.device, mesh).eval()
 
     @torch.no_grad()
     def forward_batch(
         self, wav: torch.Tensor, wav_mask: torch.Tensor
     ) -> Tuple[torch.Tensor, torch.Tensor]:
-        """(B, T) waveform + mask on the device -> f32 features, frame mask."""
+        """(B, T) waveform + mask on the device -> f32 features, frame mask.
+        Over a mesh: the global batch (host or device) in, this rank's rows
+        through its encoder shard, the global batch's features out."""
+        if self.mesh is not None:
+            return self._forward_mesh(wav, wav_mask)
         x = normalize_wav(wav, wav_mask) if self.cfg.normalize_input else wav
         feats, frame_mask = self.model(x, wav_mask)
         return feats.float(), frame_mask
+
+    def _forward_mesh(self, wav: torch.Tensor, wav_mask: torch.Tensor):
+        import torch.distributed as dist
+
+        from ..parallel.mesh import batch_sharding
+
+        mesh = self.mesh
+        w, m = batch_sharding(mesh, (wav, wav_mask))
+        x = normalize_wav(w, m) if self.cfg.normalize_input else w
+        feats, _ = self.model(x, m)
+        parts = [torch.empty_like(feats, dtype=torch.float32) for _ in range(mesh.dp)]
+        dist.all_gather(parts, feats.float().contiguous(), group=mesh.dp_group)
+        feats = torch.cat(parts)
+        frame_mask = convert_padding_mask(wav_mask.to(self.device), feats.shape[1],
+                                          self.cfg.conv_feature_layers)
+        return feats, frame_mask
 
     def extract_clips(self, clips: Sequence[np.ndarray]) -> List[np.ndarray]:
         """Extracts features for a list of 1-D waveforms, preserving order."""
@@ -87,10 +117,10 @@ class FeatureExtractor:
             for row, c in enumerate(group):
                 wav[row, : len(c)] = c
                 mask[row, : len(c)] = False
-            feats, _ = self.forward_batch(
-                torch.from_numpy(wav).to(self.device),
-                torch.from_numpy(mask).to(self.device),
-            )
+            wav_t, mask_t = torch.from_numpy(wav), torch.from_numpy(mask)
+            if self.mesh is None:  # over a mesh each rank uploads its rows only
+                wav_t, mask_t = wav_t.to(self.device), mask_t.to(self.device)
+            feats, _ = self.forward_batch(wav_t, mask_t)
             feats = feats.cpu().numpy()
             out_lens = conv_out_lengths(
                 torch.tensor([len(c) for c in group]), self.cfg.conv_feature_layers
@@ -112,13 +142,12 @@ def extract_manifest(
 ) -> Tuple[int, int]:
     """Extracts every clip of ``<manifest_dir>/<split>.tsv`` and writes the
     feature store (the reference CLI's --data/--split/--save-dir); returns
-    (clips, frames)."""
+    (clips, frames). Over a mesh, rank 0 writes."""
     from ..audio.wavio import read_wav
 
     root, files = read_manifest(manifest_dir, split)
     extractor = FeatureExtractor(cfg, state_dict, batch_size=batch_size, device=device,
                                  mesh=mesh)
-    os.makedirs(save_dir, exist_ok=True)
     prefix = os.path.join(save_dir, split)
 
     clips = []
@@ -132,6 +161,9 @@ def extract_manifest(
 
     feats = extractor.extract_clips(clips)
     flat = np.concatenate([f for f in feats if len(f)], axis=0)
+    if mesh is not None and not mesh.is_writer:
+        return len(files), len(flat)
+    os.makedirs(save_dir, exist_ok=True)
     np.save(prefix + ".npy", flat)
     with open(prefix + ".lengths", "w") as f:
         for x in feats:
@@ -162,9 +194,10 @@ def add_extract_args(p: argparse.ArgumentParser) -> None:
     p.add_argument("--encoder-json", default=None,
                    help="EncoderConfig overrides as inline JSON or a JSON file")
     p.add_argument("--dp", type=int, default=0,
-                   help="data-parallel size (multi-GPU, not ported yet: > 0 exits 2)")
+                   help="shard batches over a dp mesh of this size (0 = single device; "
+                        "under torchrun, max(dp, 1) * tp processes)")
     p.add_argument("--tp", type=int, default=1,
-                   help="tensor-parallel size (multi-GPU, not ported yet: > 1 exits 2)")
+                   help="tensor-parallel split of the encoder (with --dp)")
     p.add_argument("--device", default="cuda",
                    help="cuda (default) or cpu; without a GPU, cuda fails")
 
@@ -172,23 +205,29 @@ def add_extract_args(p: argparse.ArgumentParser) -> None:
 def run(args) -> int:
     """``extract`` from parsed flags; the encoder's config comes from
     ``configs.encoder_config`` (frozen, so the forward-only attention
-    kernel serves)."""
+    kernel serves). ``--dp``/``--tp`` need ``torchrun`` (else exit 2)."""
+    from ..parallel.mesh import LaunchError, flag_mesh
     from .convert import load_emotion2vec_checkpoint
 
-    if args.dp or args.tp > 1:
-        print(f"extract: error: --dp/--tp: {MESH_NOT_PORTED}", file=sys.stderr)
+    try:
+        with flag_mesh(args.dp, args.tp, args.device,
+                       getattr(args, "argv", None) or ["extract"]) as mesh:
+            cfg = encoder_config(args.encoder_json)
+            state = load_emotion2vec_checkpoint(args.checkpoint, cfg)
+            extract_manifest(args.data, args.save_dir, cfg, state, args.split,
+                             args.batch_size, mesh=mesh, device=args.device)
+    except LaunchError as e:
+        print(f"extract: error: {e}", file=sys.stderr)
         return 2
-    cfg = encoder_config(args.encoder_json)
-    state = load_emotion2vec_checkpoint(args.checkpoint, cfg)
-    extract_manifest(args.data, args.save_dir, cfg, state, args.split, args.batch_size,
-                     device=args.device)
     return 0
 
 
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description="extract emotion2vec features")
     add_extract_args(p)
-    return run(p.parse_args(argv))
+    args = p.parse_args(argv)
+    args.argv = ["extract", *(sys.argv[1:] if argv is None else argv)]
+    return run(args)
 
 
 if __name__ == "__main__":

@@ -60,7 +60,8 @@ class DADEncoder(nn.Module):
 
 class DADClassifier(nn.Module):
     """Dropout + Linear 256->C. The teacher runs with ``deterministic=True``
-    (no dropout); the student's dropout draws from ``generator``."""
+    (no dropout); the student's dropout takes ``keep`` or draws from
+    ``generator``."""
 
     def __init__(self, hidden_dim: int = 256, num_classes: int = 4,
                  dropout_rate: float = 0.1):
@@ -69,9 +70,10 @@ class DADClassifier(nn.Module):
         self.fc_layer = _linear(hidden_dim, num_classes)
 
     def forward(self, x: torch.Tensor, deterministic: bool = True,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+                generator: Optional[torch.Generator] = None,
+                keep: Optional[torch.Tensor] = None) -> torch.Tensor:
         if not deterministic:
-            x = dropout(x, self.dropout_rate, generator)
+            x = dropout(x, self.dropout_rate, generator, keep)
         return self.fc_layer(x)
 
 
@@ -85,9 +87,10 @@ class DADHead(nn.Module):
         self.classifier = DADClassifier(hidden_dim, num_classes, dropout_rate)
 
     def forward(self, feats, padding_mask, deterministic: bool = True,
-                generator: Optional[torch.Generator] = None):
+                generator: Optional[torch.Generator] = None,
+                keep: Optional[torch.Tensor] = None):
         emb = self.encoder(feats, padding_mask)
-        return self.classifier(emb, deterministic=deterministic, generator=generator), emb
+        return self.classifier(emb, deterministic, generator, keep), emb
 
     def embed(self, feats: torch.Tensor, padding_mask: torch.Tensor) -> torch.Tensor:
         return self.encoder(feats, padding_mask)

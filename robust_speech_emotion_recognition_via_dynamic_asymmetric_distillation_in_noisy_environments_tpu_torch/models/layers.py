@@ -25,6 +25,12 @@ masks are drawn before it runs, in the order its forward uses them
 (``torch.utils.checkpoint``) sees the same masks. Also here: the branches
 the shipped config never takes (cosine attention, alibi, ``layer_norm_first``)
 and the additive attention ``bias``.
+
+Tensor parallelism (``tp_group``, forward only): ``AltAttention`` holds its
+rank's heads and ``Mlp`` its share of the hidden width
+(``parallel/mesh.py::shard_encoder_state`` gives the weights); the partial
+outputs of the attention projection and of fc2 are summed over the group
+with ``dist.all_reduce``, and their biases are added once, after the sum.
 """
 
 from __future__ import annotations
@@ -34,6 +40,7 @@ from typing import Iterator, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
@@ -150,6 +157,25 @@ class Dense(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         b = None if self.bias is None else self.bias.to(self.dtype)
         return F.linear(x.to(self.dtype), self.weight.to(self.dtype), b)
+
+
+def tp_size(group) -> int:
+    return 1 if group is None else dist.get_world_size(group)
+
+
+def row_parallel(dense: Dense, x: torch.Tensor, group) -> torch.Tensor:
+    """``dense`` over a rank's slice of its input features, summed over the
+    tensor-parallel ``group``; the bias is added once, after the sum. With
+    no group this is ``dense(x)``. Forward only: the sum is a plain
+    collective, with no gradient."""
+    if group is None:
+        return dense(x)
+    y = F.linear(x.to(dense.dtype), dense.weight.to(dense.dtype))
+    if y.requires_grad:
+        raise RuntimeError("the tensor-parallel encoder is forward-only (a frozen "
+                           "encoder under torch.no_grad())")
+    dist.all_reduce(y, group=group)
+    return y if dense.bias is None else y + dense.bias.to(dense.dtype)
 
 
 class Conv(nn.Module):
@@ -271,17 +297,25 @@ class Mlp(nn.Module):
     """timm-style MLP: fc1 -> GELU -> drop -> fc2 -> drop."""
 
     def __init__(self, dim: int, hidden_dim: int, out_dim: int, drop: float = 0.0,
-                 dtype: torch.dtype = torch.float32, gelu_approximate: bool = False):
+                 dtype: torch.dtype = torch.float32, gelu_approximate: bool = False,
+                 tp_group=None):
+        """``tp_group``: this rank holds ``hidden_dim / tp`` of the hidden
+        units (fc1's rows, fc2's columns); fc2's partial sums are reduced."""
         super().__init__()
         self.drop = drop
         self.gelu_approximate = gelu_approximate
-        self.fc1 = Dense(dim, hidden_dim, dtype)
-        self.fc2 = Dense(hidden_dim, out_dim, dtype)
+        self.tp_group = tp_group
+        tp = tp_size(tp_group)
+        if hidden_dim % tp:
+            raise ValueError(f"MLP hidden width {hidden_dim} does not split over tp={tp}")
+        self.hidden_dim = hidden_dim // tp
+        self.fc1 = Dense(dim, self.hidden_dim, dtype)
+        self.fc2 = Dense(self.hidden_dim, out_dim, dtype)
 
     def forward(self, x: torch.Tensor,
                 keeps: Optional[Iterator[torch.Tensor]] = None) -> torch.Tensor:
         x = _drop(_gelu(self.fc1(x), self.gelu_approximate), self.drop, keeps)
-        return _drop(self.fc2(x), self.drop, keeps)
+        return _drop(row_parallel(self.fc2, x, self.tp_group), self.drop, keeps)
 
 
 class AltAttention(nn.Module):
@@ -293,23 +327,35 @@ class AltAttention(nn.Module):
     must not take it (``make_d2v_train_step`` refuses such a config).
 
     ``cosine_attention``: L2-normalised q and k with a learned per-head
-    logit scale, clamped at log(1/0.01)."""
+    logit scale, clamped at log(1/0.01).
+
+    ``tp_group``: this rank holds ``num_heads / tp`` heads (their q, k and v
+    rows of qkv, their columns of proj, their logit scales); the projection's
+    partial sums are reduced over the group."""
 
     def __init__(self, dim: int, num_heads: int, attn_drop: float = 0.0,
                  proj_drop: float = 0.0, dtype: torch.dtype = torch.float32,
                  use_flash: Union[bool, str] = False,
-                 fast_softmax: bool = False, cosine_attention: bool = False):
+                 fast_softmax: bool = False, cosine_attention: bool = False,
+                 tp_group=None):
         super().__init__()
-        self.num_heads = num_heads
+        tp = tp_size(tp_group)
+        if num_heads % tp:
+            raise ValueError(f"{num_heads} heads do not split over tp={tp}")
+        self.num_heads = num_heads // tp  # this rank's heads
+        self.head_dim = dim // num_heads
+        self.tp_group = tp_group
         self.attn_drop, self.proj_drop = attn_drop, proj_drop
         self.dtype = dtype
         self.use_flash = use_flash
         self.fast_softmax = fast_softmax
         self.cosine_attention = cosine_attention
-        self.qkv = Dense(dim, dim * 3, dtype)
-        self.proj = Dense(dim, dim, dtype)
+        width = self.num_heads * self.head_dim
+        self.qkv = Dense(dim, width * 3, dtype)
+        self.proj = Dense(width, dim, dtype)
         if cosine_attention:
-            self.logit_scale = nn.Parameter(torch.full((num_heads, 1, 1), math.log(10.0)))
+            self.logit_scale = nn.Parameter(torch.full((self.num_heads, 1, 1),
+                                                       math.log(10.0)))
 
     def flash_ok(self, n: int, bias: Optional[torch.Tensor], deterministic: bool) -> bool:
         want_flash = self.use_flash is True or (
@@ -322,9 +368,9 @@ class AltAttention(nn.Module):
                 padding_mask: Optional[torch.Tensor] = None,
                 bias: Optional[torch.Tensor] = None,
                 keeps: Optional[Iterator[torch.Tensor]] = None) -> torch.Tensor:
-        B, N, C = x.shape
-        H = self.num_heads
-        head_dim = C // H
+        B, N, _ = x.shape
+        H, head_dim = self.num_heads, self.head_dim
+        C = H * head_dim
         scale = head_dim**-0.5
 
         qkv = self.qkv(x).reshape(B, N, 3, H, head_dim)
@@ -363,7 +409,8 @@ class AltAttention(nn.Module):
             attn = _drop(attn, self.attn_drop, keeps)
             out = torch.einsum("bhnm,bmhd->bnhd", attn, v)
 
-        return _drop(self.proj(out.reshape(B, N, C)), self.proj_drop, keeps)
+        return _drop(row_parallel(self.proj, out.reshape(B, N, C), self.tp_group),
+                     self.proj_drop, keeps)
 
 
 class AltBlock(nn.Module):
@@ -383,18 +430,19 @@ class AltBlock(nn.Module):
                  use_flash: Union[bool, str] = False,
                  gelu_approximate: bool = False, fast_ln: bool = False,
                  fast_softmax: bool = False, cosine_attention: bool = False,
-                 return_ffn_target: bool = False):
+                 return_ffn_target: bool = False, tp_group=None):
         super().__init__()
         self.dtype = dtype
         self.layer_norm_first = layer_norm_first
         self.post_mlp_drop = post_mlp_drop
         self.return_ffn_target = return_ffn_target
-        self.hidden_dim = int(dim * mlp_ratio)
         self.attn = AltAttention(dim, num_heads, attn_drop, drop, dtype, use_flash,
-                                 fast_softmax, cosine_attention)
+                                 fast_softmax, cosine_attention, tp_group)
         self.norm1 = make_norm(fast_ln, norm_eps, dim)
         self.norm2 = make_norm(fast_ln, norm_eps, dim)
-        self.mlp = Mlp(dim, self.hidden_dim, dim, mlp_drop, dtype, gelu_approximate)
+        self.mlp = Mlp(dim, int(dim * mlp_ratio), dim, mlp_drop, dtype, gelu_approximate,
+                       tp_group)
+        self.hidden_dim = self.mlp.hidden_dim
 
     def draw_keeps(self, x: torch.Tensor, generator: Optional[torch.Generator],
                    bias: Optional[torch.Tensor] = None) -> List[torch.Tensor]:

@@ -13,8 +13,10 @@ inference tensors cannot be saved for backward. Only the student gets
 gradients; the teacher's forward builds no graph.
 
 The encoder module holds its own parameters, so the JAX functions'
-``enc_params`` argument has no counterpart here. Multi-GPU placement
-(``mesh``, ``place_fused``) comes with the multi-GPU slice.
+``enc_params`` argument has no counterpart here. Over a (dp, tp) mesh
+(``parallel/mesh.py``) each rank runs its tp shard of the encoder
+(``place_fused``) on its dp rows of the batch, and the head step is the
+data-parallel one of ``parallel/sharded.py``: losses over the whole batch.
 """
 
 from __future__ import annotations
@@ -37,7 +39,10 @@ from ..dad.train_step import (
 )
 from ..models.emotion2vec import Emotion2vecEncoder, normalize_wav
 from ..models.heads import DADHead
+from ..models.layers import conv_out_lengths, convert_padding_mask
 from ..utils.device import resolve_device
+from .mesh import Mesh, batch_rows, batch_sharding, replicated, shard_encoder_state
+from .sharded import as_tensor, draw_head, dp_head_step, shard_dad_state, slice_draws, valid_max
 
 
 @dataclass(frozen=True)
@@ -97,6 +102,20 @@ def precompute_clean_features(encoder: Emotion2vecEncoder, cfg: FusedConfig,
     return CleanFeatureBatch(feats, frame_mask, clean.labels, clean.row_valid)
 
 
+def frozen_encoder(cfg: EncoderConfig, encoder_state: Dict[str, torch.Tensor],
+                   device: Union[str, torch.device], mesh: Optional[Mesh] = None
+                   ) -> Emotion2vecEncoder:
+    """The frozen encoder on ``device`` from a full state dict; over a
+    mesh with tp > 1, this rank's tensor-parallel shard of it."""
+    group = mesh.tp_group if mesh is not None and mesh.tp > 1 else None
+    if group is not None:
+        encoder_state = shard_encoder_state(encoder_state, mesh)
+    with torch.device(device):
+        encoder = Emotion2vecEncoder(cfg, tp_group=group)
+    encoder.load_state_dict(encoder_state)
+    return encoder.requires_grad_(False)
+
+
 def init_fused(cfg: FusedConfig, encoder_state: Dict[str, torch.Tensor],
                generator: Optional[torch.Generator] = None,
                device: Union[str, torch.device] = "cuda"):
@@ -104,12 +123,17 @@ def init_fused(cfg: FusedConfig, encoder_state: Dict[str, torch.Tensor],
     emotion2vec checkpoint), the DAD head, its optimizer and train state,
     on ``device``. Returns (encoder, head, tx, state)."""
     dev = resolve_device(device)
-    with dev:
-        encoder = Emotion2vecEncoder(cfg.encoder)
-    encoder.load_state_dict(encoder_state)
-    encoder.requires_grad_(False)
+    encoder = frozen_encoder(cfg.encoder, encoder_state, dev)
     head, tx, state = init_dad_train_state(cfg.dad, generator, device=dev)
     return encoder, head, tx, state
+
+
+def place_fused(cfg: FusedConfig, encoder_state: Dict[str, torch.Tensor],
+                state: DADTrainState, mesh: Mesh):
+    """Placement over a mesh: the encoder tp-sharded (this rank's shard, on
+    its device), the DAD state replicated. Returns (encoder, state)."""
+    return (frozen_encoder(cfg.encoder, encoder_state, mesh.device, mesh),
+            shard_dad_state(state, mesh))
 
 
 def validate_injection(cfg: FusedConfig) -> None:
@@ -124,16 +148,22 @@ def validate_injection(cfg: FusedConfig) -> None:
 def inject_noise(cfg: FusedConfig, noisy_wav: torch.Tensor, wav_mask: torch.Tensor,
                  generator: Optional[torch.Generator], noise_bank=None,
                  noise: Optional[torch.Tensor] = None,
-                 bank_offsets: Optional[torch.Tensor] = None) -> torch.Tensor:
+                 bank_offsets: Optional[torch.Tensor] = None,
+                 bank_types: Optional[torch.Tensor] = None,
+                 snr_index: Optional[torch.Tensor] = None) -> torch.Tensor:
     """On-device counterpart of the reference injectors: white noise or
     NOISEX bank mixing, at a fixed or per-clip SNR. ``noise`` supplies the
-    white noise's standard-normal draws, ``bank_offsets`` the bank mix's
-    circular offsets."""
+    white noise's standard-normal draws, ``bank_offsets`` / ``bank_types``
+    the bank mix's circular offsets and random-mode rows, ``snr_index`` the
+    per-clip SNR picks; the rest is drawn from ``generator`` in that order
+    (SNR picks, then the noise)."""
     if cfg.inject_snr_choices:
         snrs = torch.tensor(cfg.inject_snr_choices, dtype=torch.float32,
                             device=noisy_wav.device)
-        snr = snrs[torch.randint(0, len(snrs), (noisy_wav.shape[0],),
-                                 generator=generator, device=noisy_wav.device)]
+        if snr_index is None:
+            snr_index = torch.randint(0, len(snrs), (noisy_wav.shape[0],),
+                                      generator=generator, device=noisy_wav.device)
+        snr = snrs[snr_index]
     elif cfg.inject_snr_db is not None:
         snr = cfg.inject_snr_db
     else:
@@ -143,7 +173,7 @@ def inject_noise(cfg: FusedConfig, noisy_wav: torch.Tensor, wav_mask: torch.Tens
             noisy_wav, ~wav_mask, noise_bank, snr, generator,
             noise_type=cfg.inject_noise_type,
             per_sample_type=cfg.inject_noise_bank_mode == "random",
-            offsets=bank_offsets,
+            types=bank_types, offsets=bank_offsets,
         )
     return batch_add_white_noise(noisy_wav, ~wav_mask, snr, generator, noise=noise)
 
@@ -165,7 +195,8 @@ def build_fused_step(encoder: Emotion2vecEncoder, head: DADHead, tx: Optimizer,
         draws = draws or StepDraws()
         noisy_wav = inject_noise(cfg, noisy.wav, noisy.wav_mask, generator,
                                  noise_bank, noise=draws.inject,
-                                 bank_offsets=draws.bank_offsets)
+                                 bank_offsets=draws.bank_offsets, bank_types=draws.bank_types,
+                                 snr_index=draws.snr_index)
         if cfg.cache_clean_features:
             clean_feats, clean_fmask = clean.feats, clean.frame_mask
         else:
@@ -188,12 +219,87 @@ def build_fused_step(encoder: Emotion2vecEncoder, head: DADHead, tx: Optimizer,
     return step
 
 
+def draw_injection(cfg: FusedConfig, generator, given: StepDraws, B: int, T: int, device,
+                   noise_bank=None) -> StepDraws:
+    """The injection's draws for a global batch of B waveforms of T
+    samples, in ``inject_noise``'s order; what ``given`` holds is kept."""
+    d = given
+    if not (cfg.inject_snr_choices or cfg.inject_snr_db is not None):
+        return d
+    if cfg.inject_snr_choices and d.snr_index is None:
+        d = d._replace(snr_index=torch.randint(0, len(cfg.inject_snr_choices), (B,),
+                                               generator=generator, device=device))
+    if cfg.inject_noise_bank_mode is None:
+        if d.inject is None:
+            d = d._replace(inject=torch.randn((B, T), generator=generator, device=device))
+        return d
+    K, Tn = noise_bank.shape
+    if cfg.inject_noise_bank_mode == "random" and d.bank_types is None:
+        d = d._replace(bank_types=torch.randint(0, K, (B,), generator=generator, device=device))
+    if d.bank_offsets is None:
+        d = d._replace(bank_offsets=torch.randint(0, Tn, (B,), generator=generator,
+                                                  device=device))
+    return d
+
+
+def build_sharded_fused_step(encoder: Emotion2vecEncoder, head: DADHead, tx: Optimizer,
+                             cfg: FusedConfig, mesh: Mesh):
+    """The fused step over a (dp, tp) mesh, with ``build_fused_step``'s
+    signature. ``clean`` and ``noisy`` are the GLOBAL batches (host or
+    device); this rank injects noise into its dp rows (its rows of the
+    global batch's draws), runs its tp shard of the encoder on them, and
+    takes the data-parallel head step. ``encoder`` is this rank's shard
+    (``place_fused``); the noise bank is replicated."""
+    validate_injection(cfg)
+    layers = cfg.encoder.conv_feature_layers
+    dropout_rate = head.classifier.dropout_rate
+
+    def step(state: DADTrainState, clean: Union[FusedBatch, CleanFeatureBatch],
+             noisy: FusedBatch, scalars: StepScalars, anchors: torch.Tensor,
+             generator: Optional[torch.Generator] = None, noise_bank=None,
+             draws: Optional[StepDraws] = None):
+        dev = mesh.device
+        B, T = noisy.wav.shape
+        rows = batch_rows(mesh, B)
+        # the whole batch's frame mask: its longest valid length sets the
+        # strong view's temporal mask on every rank
+        wav_mask = as_tensor(noisy.wav_mask, dev)
+        frames = int(conv_out_lengths(torch.tensor([T]), layers)[0])
+        noisy_fmask = convert_padding_mask(wav_mask, frames, layers)
+        d = draw_injection(cfg, generator, replicated(mesh, draws or StepDraws()), B, T, dev,
+                           noise_bank)
+        d = draw_head(generator, cfg.dad, d, B, (B, frames, cfg.encoder.embed_dim), dev,
+                      valid_max(noisy_fmask), dropout_rate, trainer_order=False)
+        local = slice_draws(d, rows)
+        wav = batch_sharding(mesh, noisy.wav, B)
+        noisy_wav = inject_noise(cfg, wav, wav_mask[rows], None, noise_bank,
+                                 noise=local.inject, bank_offsets=local.bank_offsets,
+                                 bank_types=local.bank_types, snr_index=local.snr_index)
+        if cfg.cache_clean_features:
+            clean_feats, clean_fmask = batch_sharding(mesh, (clean.feats, clean.frame_mask), B)
+            clean_feats = clean_feats.float()
+        else:
+            cw, cm = batch_sharding(mesh, (clean.wav, clean.wav_mask), B)
+            clean_feats, clean_fmask = extract(encoder, cfg, cw, cm)
+        noisy_feats, fmask = extract(encoder, cfg, noisy_wav, wav_mask[rows])
+        ids = None if noisy.ids is None else as_tensor(noisy.ids, dev)
+        new_state, metrics, tracking = dp_head_step(
+            head, tx, cfg.dad, mesh, state, clean_feats, clean_fmask, noisy_feats, fmask,
+            as_tensor(clean.labels, dev), as_tensor(clean.row_valid, dev),
+            as_tensor(noisy.row_valid, dev), ids, scalars, anchors, local,
+            valid_max(noisy_fmask))
+        if ids is not None:
+            metrics["tracking"] = tracking
+        return new_state, metrics
+
+    return step
+
+
 def make_fused_extract_train_step(encoder: Emotion2vecEncoder, head: DADHead,
-                                  tx: Optimizer, cfg: FusedConfig, mesh=None):
-    """The fused step on one device. The encoder is frozen; only the head's
-    student gets gradients."""
+                                  tx: Optimizer, cfg: FusedConfig, mesh: Optional[Mesh] = None):
+    """The fused step. The encoder is frozen; only the head's student gets
+    gradients. With a mesh, batches are split over dp and the encoder is
+    this rank's tp shard (``build_sharded_fused_step``)."""
     if mesh is not None:
-        raise NotImplementedError(
-            "a device mesh (tp/dp sharding) comes with the multi-GPU slice"
-        )
+        return build_sharded_fused_step(encoder, head, tx, cfg, mesh)
     return build_fused_step(encoder, head, tx, cfg)

@@ -15,7 +15,10 @@ slot to 128 samples for a TPU gather's speed; that changes no value and is
 not done here.
 
 The runners (``make_resident_*_epoch_runner``) loop over a chunk of steps
-on the device, as ``dad/epoch_scan.py`` does for streamed chunks. The d2v
+on the device, as ``dad/epoch_scan.py`` does for streamed chunks. Over a
+mesh every rank holds the whole corpus (replicated, as in the JAX
+package), gathers the global batch pair and hands it to the fused mesh
+step, which takes the rank's rows. The d2v
 pretraining corpus (``resident_from_flat``, ``make_resident_d2v_step``)
 gathers fixed-size crops from per-row start offsets.
 """
@@ -31,7 +34,7 @@ from ..data.batching import Batch, epoch_order, pad_to_bucket
 from ..dad.epoch_scan import pad_draws
 from ..dad.train_step import StepDraws, make_dad_train_step
 from ..utils import get_logger
-from .fused import CleanFeatureBatch, FusedBatch, FusedConfig, build_fused_step
+from .fused import CleanFeatureBatch, FusedBatch, FusedConfig, make_fused_extract_train_step
 
 logger = get_logger(__name__)
 
@@ -329,11 +332,10 @@ def make_resident_fused_step(encoder, head, tx, cfg: FusedConfig, mesh=None):
          frame_cap=None) -> (state', metrics)
 
     The encoder module holds its weights, so the JAX step's ``enc_params``
-    has no counterpart here."""
+    has no counterpart here. With a mesh, the step is the fused mesh step
+    on the gathered global batch pair."""
     _check_cached(cfg)
-    if mesh is not None:
-        raise NotImplementedError("a mesh (multi-GPU) is not ported yet: ROADMAP.md §1 item 9")
-    core = build_fused_step(encoder, head, tx, cfg)
+    core = make_fused_extract_train_step(encoder, head, tx, cfg, mesh)
 
     def step(state, clean_c: ResidentClips, wav_c: ResidentClips, clean_idx, noisy_idx,
              scalars, anchors, generator=None, noise_bank=None,

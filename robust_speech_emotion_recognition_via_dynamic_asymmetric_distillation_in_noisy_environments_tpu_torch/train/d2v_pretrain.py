@@ -212,6 +212,25 @@ def _dataset(dirs, pcfg, binarized: bool, **kw) -> WavCropDataset:
     return WavCropDataset(dirs, pcfg, **kw)
 
 
+def stage_metrics(mstack: Dict[str, torch.Tensor]):
+    """A step's metrics copied to the host behind it on the stream: CUDA
+    tensors go ``non_blocking`` into pinned buffers, followed by an event,
+    so that reading them later waits for this step alone, not for the steps
+    queued after it. Returns (host tensors, event or None); the buffers
+    are held with the event until it has passed. CPU tensors are taken as
+    they are."""
+    if not any(v.is_cuda for v in mstack.values()):
+        return mstack, None
+    host = {}
+    for k, v in mstack.items():
+        buf = torch.empty(v.shape, dtype=v.dtype, pin_memory=True)
+        buf.copy_(v, non_blocking=True)
+        host[k] = buf
+    event = torch.cuda.Event()
+    event.record()
+    return host, event
+
+
 def run_d2v_pretrain(
     cfg: EncoderConfig,
     pcfg: D2vPretrainConfig,
@@ -371,11 +390,15 @@ def run_d2v_pretrain(
     step = int(state.step)
     done = step >= pcfg.max_steps
 
-    def process_chunk(first: int, k: int, mstack) -> bool:
+    def process_chunk(first: int, k: int, staged) -> bool:
         """The collapse guards for every update of one dispatched chunk, and
-        its history entries; True on abort."""
+        its history entries; True on abort. ``staged`` is ``stage_metrics``'
+        (host buffers, event): only that chunk's copy is waited for."""
         nonlocal last
-        m = {kk: np.atleast_1d(v.float().cpu().numpy()) for kk, v in mstack.items()}
+        host, event = staged
+        if event is not None:
+            event.synchronize()
+        m = {kk: np.atleast_1d(v.float().numpy()) for kk, v in host.items()}
         for i in range(k):
             s = first + i
             abort = False
@@ -441,9 +464,10 @@ def run_d2v_pretrain(
                 state, mstack = step_fn(state, wavs, pads, rng, None if d is None else d[0])
             step += k
             batch_in_epoch += k
+            staged = stage_metrics(mstack)
             if pending is not None and process_chunk(*pending):
                 done = aborted = True
-            pending = (first, k, mstack)
+            pending = (first, k, staged)
             at_end = step >= pcfg.max_steps
             crossed = bool(checkpoint_every) and (
                 step // checkpoint_every > (first - 1) // checkpoint_every)

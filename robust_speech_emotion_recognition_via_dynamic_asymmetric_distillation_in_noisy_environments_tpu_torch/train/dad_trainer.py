@@ -17,8 +17,11 @@ numbers are the same either way. Nothing in an epoch reads a value back
 per step: the step metrics and the tracked samples' rows are taken once at
 the epoch's end, and validation pulls its predictions once per pass.
 
-Not ported yet, and refused with ``NotImplementedError``: a mesh (ROADMAP.md
-§1 item 9, multi-GPU).
+Over a dp mesh (``parallel/mesh.py``, ``cli dad --dp N`` under ``torchrun``)
+every rank assembles the same global batches on the host and the
+data-parallel step (``parallel/sharded.py``) takes its rows: the history is
+the single-process one at the same global batch. Every rank validates;
+rank 0 alone writes checkpoints, reports and the history.
 """
 
 from __future__ import annotations
@@ -69,7 +72,8 @@ from ..models.convert import (
     torch_state_dict_to_ssrl,
 )
 from ..models.heads import SSRLState, load_pretrain_into_ssrl
-from ..utils import MESH_NOT_PORTED, dump_json, get_logger, resolve_device
+from ..parallel.sharded import make_sharded_dad_train_step, shard_dad_state
+from ..utils import dump_json, get_logger, resolve_device
 from .checkpointing import restore_train_state, save_train_state
 
 logger = get_logger(__name__)
@@ -205,9 +209,25 @@ class CrossDomainTrainer:
 
         ``step_draws(epoch, step)``: a test hook that gives each training
         step's weak/strong draws instead of the trainer's generator.
+
+        ``mesh`` (``parallel.make_mesh``, dp only): every training batch split
+        over dp, the losses over the whole batch; the device is the mesh's.
+        ``batch_size`` must divide by dp; ``scan_chunk`` and ``resident=True``
+        raise (the dp step streams; "auto" streams); ``transfer_dtype`` is
+        not applied.
         """
         if mesh is not None:
-            raise NotImplementedError(MESH_NOT_PORTED)
+            if scan_chunk:
+                raise ValueError("scan_chunk is not supported with a mesh (per-batch "
+                                 "dispatch already amortizes across devices)")
+            if resident is True:
+                raise ValueError("resident=True is not supported with a mesh in the "
+                                 "feature-mode trainer (the fused trainer supports "
+                                 "mesh+resident)")
+            if cfg.batch_size % mesh.dp:
+                raise ValueError(f"batch_size={cfg.batch_size} must divide by dp={mesh.dp}")
+            device = mesh.device
+        self.mesh = mesh
         self.device = resolve_device(device)
         self.cfg = cfg
         self.fold = fold
@@ -237,6 +257,11 @@ class CrossDomainTrainer:
         self._setup_training()
 
     # ------------------------------------------------------------------
+    @property
+    def is_writer(self) -> bool:
+        """Rank 0 of a mesh, or the only process."""
+        return self.mesh is None or self.mesh.is_writer
+
     def _setup_results_directory(self) -> str:
         base = self.cfg.results_base_dir
         if self.experiment_name:
@@ -251,8 +276,9 @@ class CrossDomainTrainer:
             d = os.path.join(base, "root2", info["db_value"], f"fold_{self.fold + 1}")
         else:
             d = os.path.join(base, "unknown", f"fold_{self.fold + 1}")
-        for sub in ("models", "plots", "reports"):
-            os.makedirs(os.path.join(d, sub), exist_ok=True)
+        if self.is_writer:
+            for sub in ("models", "plots", "reports"):
+                os.makedirs(os.path.join(d, sub), exist_ok=True)
         return d
 
     def _setup_data(self, clean_store, noisy_store):
@@ -336,7 +362,12 @@ class CrossDomainTrainer:
         self.anchors = torch.as_tensor(anchors, device=self.device)
 
     def _setup_training(self):
-        self.train_step = make_dad_train_step(self.head, self.tx, self.cfg)
+        if self.mesh is None:
+            self.train_step = make_dad_train_step(self.head, self.tx, self.cfg)
+        else:
+            self.train_step = make_sharded_dad_train_step(self.head, self.tx, self.cfg,
+                                                          self.mesh)
+            self.state = shard_dad_state(self.state, self.mesh)
         self.eval_step = make_eval_step(self.head)
         self._epoch_runner = None
         if self.scan_chunk:
@@ -350,7 +381,7 @@ class CrossDomainTrainer:
         gathering step or runner; or leaves the streamed path (resident
         False, or "auto" over its budget)."""
         self._resident = None
-        if self._resident_mode is False:
+        if self._resident_mode is False or self.mesh is not None:
             return
         clean_sub, noisy_sub = self.clean_train.store, self.noisy_train.store
         est = resident_nbytes(clean_sub) + resident_nbytes(noisy_sub)
@@ -376,8 +407,11 @@ class CrossDomainTrainer:
     def _draws(self, epoch: int, step: int, feats: torch.Tensor,
                padding_mask: torch.Tensor) -> StepDraws:
         """Step ``step``'s weak/strong draws at the shape of its own noisy
-        batch: from the hook where one is set, else from the generator."""
+        batch: from the hook where one is set, else from the generator (over
+        a mesh the data-parallel step draws them: None)."""
         if self.step_draws is None:
+            if self.mesh is not None:
+                return None
             return draw_feature_step(self.generator, feats, padding_mask, self.cfg.augment)
         return tree_map(lambda x: x.to(self.device) if isinstance(x, torch.Tensor) else x,
                         self.step_draws(epoch, step))
@@ -405,10 +439,12 @@ class CrossDomainTrainer:
 
     def _run_epoch_streamed(self, epoch, scalars, steps, tracked) -> None:
         n = 0
+        # over a mesh the step takes each rank's rows of the host batches
         pairs = prefetch(
             paired_epoch(self.clean_train, self.noisy_train, epoch),
-            depth=self.prefetch_depth, to_device=True,
-            transfer_fp32_as=self.transfer_dtype, device=self.device,
+            depth=self.prefetch_depth, to_device=self.mesh is None,
+            transfer_fp32_as=self.transfer_dtype if self.mesh is None else None,
+            device=self.device,
         )
         for clean_b, noisy_b in pairs:
             draws = self._draws(epoch, n, noisy_b.feats, noisy_b.padding_mask)
@@ -571,6 +607,8 @@ class CrossDomainTrainer:
         self.best_results.update(
             {"epoch": epoch, "clean_results": clean_results, "noisy_results": noisy_results}
         )
+        if not self.is_writer:
+            return
         # reference-layout torch checkpoint, loadable by the reference's
         # inference/analysis scripts and by the JAX package
         save_torch_file(ssrl_to_torch_state_dict(self.state.ssrl), self.best_path)
@@ -600,6 +638,8 @@ class CrossDomainTrainer:
         return os.path.join(self.results_dir, "models", "last_state.pt")
 
     def save_resume_checkpoint(self, epoch: int) -> None:
+        if not self.is_writer:
+            return
         save_train_state(
             self._last_state_path,
             self.state,
@@ -689,6 +729,8 @@ class CrossDomainTrainer:
         return out
 
     def _save_analysis_data(self):
+        if not self.is_writer:
+            return
         dump_json(
             dict(self.training_history),
             os.path.join(self.results_dir, "reports", "training_history.json"),
@@ -709,6 +751,8 @@ class CrossDomainTrainer:
         }
 
     def _evaluate_on_test_set(self):
+        if self.mesh is not None:
+            torch.distributed.barrier()  # rank 0's best checkpoint is on disk
         if not os.path.exists(self.best_path):
             # reference train.py:704-707: warn and skip; evaluating
             # last-epoch weights would masquerade as a best-model result
@@ -724,6 +768,8 @@ class CrossDomainTrainer:
             "final test | clean WA %.2f%% | noisy WA %.2f%%",
             clean_test["weighted_accuracy"], noisy_test["weighted_accuracy"],
         )
+        if not self.is_writer:
+            return clean_test, noisy_test
         best_detailed_results(
             self.results_dir, self.noise_info, self.fold, 999,
             clean_test, noisy_test, self.class_names, is_best=False,
@@ -762,8 +808,6 @@ def run_cv(
     ``final_summary_report.json`` the reference left commented out
     (train.py:797-800).
     """
-    if mesh is not None:
-        raise NotImplementedError(MESH_NOT_PORTED)
     n_folds = {"iemocap": 5, "casia": 4, "emodb": 10}[cfg.corpus]
     folds = list(folds) if folds is not None else list(range(n_folds))
     all_results = []
@@ -779,6 +823,7 @@ def run_cv(
                 scan_chunk=scan_chunk,
                 prefetch_depth=prefetch_depth,
                 transfer_dtype=transfer_dtype,
+                mesh=mesh,
                 resident=resident,
                 resident_max_bytes=resident_max_bytes,
                 device=device,
@@ -806,5 +851,6 @@ def run_cv(
     out_dir = cfg.results_base_dir
     if experiment_name:
         out_dir = os.path.join(out_dir, _safe_name(experiment_name))
-    dump_json(summary, os.path.join(out_dir, "final_summary_report.json"))
+    if mesh is None or mesh.is_writer:
+        dump_json(summary, os.path.join(out_dir, "final_summary_report.json"))
     return summary

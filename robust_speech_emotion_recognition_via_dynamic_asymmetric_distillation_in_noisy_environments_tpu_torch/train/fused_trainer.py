@@ -20,7 +20,10 @@ With ``resident`` the fold's training corpus (cached clean features and the
 raw wavs) is held on the device and each step gathers its batch pair there
 (``parallel/resident.py``); the numbers are the streamed path's.
 
-A mesh (multi-GPU) is refused: ROADMAP.md §1 item 9.
+Over a (dp, tp) mesh (``cli dad --from-wav --dp/--tp`` under ``torchrun``)
+the startup extracts over the mesh, every rank holds the whole corpus,
+and each step splits the global batch over dp and the encoder over tp
+(``parallel/fused.py``); rank 0 writes.
 """
 
 from __future__ import annotations
@@ -61,7 +64,6 @@ from ..parallel.resident import (
 )
 from ..utils import dump_json, get_logger
 from .dad_trainer import (
-    MESH_NOT_PORTED,
     METRIC_KEYS,
     RESIDENT_MAX_BYTES,
     CrossDomainTrainer,
@@ -158,16 +160,15 @@ def prepare_fused_shared(
 
     ``enc_params``: the encoder's state dict in the port's layout.
     ``skip_noisy``: leave out the fixed noisy domain (``noisy_store`` None),
-    for callers that rebuild it with ``refresh_noisy_domain``."""
-    if mesh is not None:
-        raise NotImplementedError(MESH_NOT_PORTED)
+    for callers that rebuild it with ``refresh_noisy_domain``. ``mesh``: the
+    extractor runs over it (every rank gets every clip's features)."""
     wav_store = load_wav_store(manifest_dir, cfg.label_map)
     if wav_store.labels is None:
         raise ValueError(f"{manifest_dir} has no label sidecar")
 
     kw = {} if extract_buckets is None else {"buckets": tuple(extract_buckets)}
     extractor = FeatureExtractor(encoder_cfg, enc_params, batch_size=extract_batch_size,
-                                 device=device, **kw)
+                                 device=device, mesh=mesh, **kw)
     logger.info("fused trainer: extracting clean features once")
     clean_feats = extractor.extract_clips(wav_store.clips())
 
@@ -275,9 +276,18 @@ class FusedCrossDomainTrainer(CrossDomainTrainer):
 
         ``step_draws(epoch, step)``: a test hook that gives each training
         step's injection, weak and strong draws instead of the trainer's
-        generator."""
-        if mesh is not None:
-            raise NotImplementedError(MESH_NOT_PORTED)
+        generator.
+
+        ``mesh`` (``parallel.make_mesh``): batches over dp, the encoder over
+        tp, the resident corpus replicated on every rank; ``scan_chunk``
+        raises and ``transfer_dtype`` is not applied (the JAX rules)."""
+        if mesh is not None and scan_chunk:
+            raise ValueError("scan_chunk is not supported with a mesh (per-batch dispatch "
+                             "keeps dp/tp shardings simple); pass scan_chunk=0")
+        if mesh is not None and transfer_dtype:
+            logger.warning("transfer_dtype=%s ignored: the fused mesh step places the "
+                           "batches", transfer_dtype)
+            transfer_dtype = None
         fused_cfg = _normalize_fused_cfg(cfg, encoder_cfg, fused_cfg, noise_root)
         self.wav_buckets = tuple(wav_buckets)
         self.fused_transfer_dtype = transfer_dtype
@@ -285,7 +295,7 @@ class FusedCrossDomainTrainer(CrossDomainTrainer):
             shared = prepare_fused_shared(
                 cfg, manifest_dir, encoder_cfg, enc_params, fused_cfg, noise_root,
                 val_injection_seed=val_injection_seed, extract_batch_size=extract_batch_size,
-                extract_buckets=extract_buckets, device=device,
+                mesh=mesh, extract_buckets=extract_buckets, device=device,
             )
         self.wav_store = shared["wav_store"]
         self.extractor = shared["extractor"]
@@ -299,7 +309,7 @@ class FusedCrossDomainTrainer(CrossDomainTrainer):
             cfg, fold=fold, experiment_name=experiment_name,
             clean_store=shared["clean_store"], noisy_store=shared["noisy_store"],
             pretrain_params=pretrain_params, scan_chunk=0, prefetch_depth=prefetch_depth,
-            device=device, step_draws=step_draws,
+            mesh=mesh, device=device, step_draws=step_draws,
         )
         self.fused_cfg = replace(fused_cfg, dad=self.cfg)
 
@@ -325,7 +335,7 @@ class FusedCrossDomainTrainer(CrossDomainTrainer):
 
         self.encoder = self.extractor.model
         self._fused_step = make_fused_extract_train_step(self.encoder, self.head, self.tx,
-                                                         self.fused_cfg)
+                                                         self.fused_cfg, self.mesh)
         self.fused_scan_chunk = scan_chunk
         self._setup_resident(resident, resident_max_bytes)
 
@@ -358,7 +368,7 @@ class FusedCrossDomainTrainer(CrossDomainTrainer):
                 self.encoder, self.head, self.tx, self.fused_cfg)
         else:
             self._resident_step = make_resident_fused_step(
-                self.encoder, self.head, self.tx, self.fused_cfg)
+                self.encoder, self.head, self.tx, self.fused_cfg, self.mesh)
 
     # ------------------------------------------------------------------
     def _paired_fused_epoch(self, epoch: int):
@@ -400,9 +410,10 @@ class FusedCrossDomainTrainer(CrossDomainTrainer):
         return average_metrics(rows, [1] * len(rows))
 
     def _train_epoch_streamed(self, epoch, scalars, per_step, tracked) -> None:
+        # over a mesh the step takes each rank's rows of the host batches
         pairs = prefetch(self._paired_fused_epoch(epoch), depth=self.prefetch_depth,
-                         to_device=True, transfer_fp32_as=self.fused_transfer_dtype,
-                         device=self.device)
+                         to_device=self.mesh is None,
+                         transfer_fp32_as=self.fused_transfer_dtype, device=self.device)
         for n, (cfb, fwb) in enumerate(pairs):
             self.state, metrics = self._fused_step(
                 self.state, cfb, fwb, scalars, self.anchors, self.generator,
@@ -487,7 +498,7 @@ def run_fused_cv(
                 noise_root=noise_root, fold=fold, experiment_name=experiment_name,
                 pretrain_params=pretrain_params, prefetch_depth=prefetch_depth,
                 transfer_dtype=transfer_dtype, shared=shared, resident=resident,
-                scan_chunk=scan_chunk, device=device,
+                scan_chunk=scan_chunk, mesh=mesh, device=device,
             )
             trainer.train()
             all_results.append(trainer.final_summary())
@@ -506,5 +517,6 @@ def run_fused_cv(
     out_dir = cfg.results_base_dir
     if experiment_name:
         out_dir = os.path.join(out_dir, _safe_name(experiment_name))
-    dump_json(summary, os.path.join(out_dir, "final_summary_report.json"))
+    if mesh is None or mesh.is_writer:
+        dump_json(summary, os.path.join(out_dir, "final_summary_report.json"))
     return summary

@@ -11,8 +11,8 @@ from typing import Union
 
 import torch
 
-MESH_NOT_PORTED = ("a mesh (multi-GPU data parallelism) is not ported yet: "
-                   "ROADMAP.md §1 item 9")
+MESH_NOT_PORTED = ("d2v pretraining over a mesh (tensor parallelism with a backward) is "
+                   "not ported yet: ROADMAP.md §1 item 9.5")
 
 
 def resolve_device(device: Union[str, torch.device] = "cuda") -> torch.device:

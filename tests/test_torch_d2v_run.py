@@ -440,7 +440,7 @@ def test_cli_writes_the_jax_file_tree(ref, tmp_path, capsys):
                     + ["--manifests", packed, "--binarized", "--device", "cpu"]) == 0
     capsys.readouterr()
     assert cli.main(argv + ["--dp", "2"]) == 2
-    assert "item 9" in capsys.readouterr().err
+    assert "item 9.5" in capsys.readouterr().err
     flash = argv[:6] + [_tiny_json(tmp_path, use_flash_attention=True)] + argv[7:]
     with pytest.raises(SystemExit) as exc:  # the CLI's ValueError exit
         cli.main(flash)

@@ -498,16 +498,35 @@ def test_cli_multi_noise_row_with_a_failed_cell_exits_1(capsys):
 
 
 def test_runner_refuses_a_mesh_and_frees_each_trainer(stores, tmp_path, monkeypatch):
-    """A mesh raises MESH_NOT_PORTED; an experiment's trainer is gone once
-    its row is returned (its device state with it)."""
+    """A fused experiment hands its mesh to its trainer (which runs on the
+    mesh's device); an experiment's trainer is gone once its row is
+    returned (its device state with it)."""
     import gc
     import weakref
 
+    from robust_speech_emotion_recognition_via_dynamic_asymmetric_distillation_in_noisy_environments_tpu_torch.parallel import (
+        Mesh,
+    )
+    from robust_speech_emotion_recognition_via_dynamic_asymmetric_distillation_in_noisy_environments_tpu_torch.train import (
+        fused_trainer,
+    )
+
     cfg = dad_preset("iemocap", **_cfg_kw(tmp_path, stores["clean"], stores["noisy"],
                                           epochs=2))
-    with pytest.raises(NotImplementedError, match="item 9"):
-        runner.run_single_fused_experiment(cfg, "x", {}, "m", None, None, mesh=object(),
-                                           device="cpu")
+    seen = {}
+
+    class Trainer:
+        def __init__(self, *args, **kw):
+            seen.update(kw)
+
+        def train(self):
+            return {"best_noisy_weighted_acc": 1.0, "results_dir": str(tmp_path / "none")}
+
+    monkeypatch.setattr(fused_trainer, "FusedCrossDomainTrainer", Trainer)
+    mesh = Mesh(dp=2, tp=2, rank=0, device=torch.device("cpu"), dp_group=None, tp_group=None)
+    row = runner.run_single_fused_experiment(cfg, "x", {}, "m", None, None, mesh=mesh,
+                                             device="cpu")
+    assert seen["mesh"] is mesh and row["name"] == "x"
     refs = []
     real = CrossDomainTrainer.train
 

@@ -178,16 +178,38 @@ def test_cli_extract_takes_the_kernel_path_unless_the_json_says(monkeypatch, tmp
 
 @pytest.mark.parametrize("flag", [["--dp", "2"], ["--tp", "2"], ["--dp", "1", "--tp", "4"]])
 def test_cli_extract_multi_gpu_exits_2_naming_item_9(tmp_path, capsys, flag):
+    """Outside ``torchrun`` ``--dp``/``--tp`` exit 2 with the launch to use
+    (max(dp, 1) * tp processes), before anything is read or written."""
     rc = cli.main(["extract", "--data", str(tmp_path), "--checkpoint", "none.pt",
                    "--save-dir", str(tmp_path / "f"), "--device", "cpu", *flag])
     assert rc == 2
-    assert "item 9" in capsys.readouterr().err
+    n = max(int(flag[flag.index("--dp") + 1]) if "--dp" in flag else 0, 1) * (
+        int(flag[flag.index("--tp") + 1]) if "--tp" in flag else 1)
+    assert f"--nproc_per_node {n} -m " in capsys.readouterr().err
     assert not (tmp_path / "f").exists()
 
 
-def test_feature_extractor_mesh_raises_naming_item_9():
-    with pytest.raises(NotImplementedError, match="item 9"):
-        FeatureExtractor(port_cfg(), {}, device="cpu", mesh=object())
+def test_feature_extractor_mesh_raises_naming_item_9(tmp_path, rng, checkpoint):
+    """A batch that does not split over dp is refused; a world of one runs
+    ``extract --dp 1`` (gloo on the CPU) and writes the store of the run
+    without a mesh."""
+    import torch_dist
+
+    from robust_speech_emotion_recognition_via_dynamic_asymmetric_distillation_in_noisy_environments_tpu_torch.parallel import (
+        Mesh,
+    )
+
+    mesh = Mesh(dp=2, tp=1, rank=0, device=torch.device("cpu"), dp_group=None, tp_group=None)
+    with pytest.raises(ValueError, match="batch_size=3 must divide by dp=2"):
+        FeatureExtractor(port_cfg(), {}, batch_size=3, device="cpu", mesh=mesh)
+    mdir = make_wav_manifest(tmp_path, rng, n=3)
+    argv = ["extract", "--data", mdir, "--checkpoint", checkpoint, "--encoder-json",
+            json.dumps(ENC), "--device", "cpu"]
+    assert cli.main(argv + ["--save-dir", str(tmp_path / "one")]) == 0
+    with torch_dist.torchrun_env(world=1):
+        assert cli.main(argv + ["--save-dir", str(tmp_path / "dp"), "--dp", "1"]) == 0
+    for name in ("train.npy", "train.lengths"):
+        assert (tmp_path / "one" / name).read_bytes() == (tmp_path / "dp" / name).read_bytes()
 
 
 def test_extract_refuses_a_wav_that_is_not_16_khz(tmp_path, rng, checkpoint, capsys):

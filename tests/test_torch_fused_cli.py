@@ -133,3 +133,31 @@ def test_fold_all_exits_1_when_a_fold_fails(mode, tmp_path, monkeypatch, capsys)
     rc = cli.main(["dad", "--corpus", "casia", "--fold", "all", "--device", "cpu"] + argv)
     assert rc == 1
     assert "fold(s) [1, 2, 3, 4] of 4 failed" in capsys.readouterr().err
+
+
+def test_cli_from_wav_over_a_world_of_one_equals_the_plain_run(corpus, tmp_path, monkeypatch):
+    """``--dp 1`` under a ``torchrun`` launch of one process (gloo on the
+    CPU; NCCL on the card, ``chip_smoke.py`` phase 13) runs the mesh step
+    and writes what the plain command writes, bit for bit."""
+    import torch_dist
+
+    manifests, ckpt, _cfg = corpus
+    argv = ["dad", "--corpus", "emodb", "--from-wav", manifests, "--checkpoint", ckpt,
+            "--encoder-json", json.dumps(ENC_JSON), "--encoder-dtype", "float32",
+            "--fold", "0", "--epochs", "2", "--warmup-epochs", "1", "--batch-size", "8",
+            "--device", "cpu"]
+    runs = {}
+    for name, extra in (("plain", []), ("world1", ["--dp", "1", "--tp", "1"])):
+        os.makedirs(tmp_path / name)
+        monkeypatch.chdir(tmp_path / name)
+        with torch_dist.torchrun_env(world=1):
+            assert cli.main(argv + extra) == 0
+        runs[name] = tmp_path / name
+    for rel in _tree(runs["plain"]):
+        a, b = runs["plain"] / rel, runs["world1"] / rel
+        if rel.endswith(".pth"):
+            sa, sb = torch.load(a), torch.load(b)
+            assert all(torch.equal(sa[k], sb[k]) for k in sa), rel
+        elif rel.endswith("training_history.json") or rel.endswith("confirmation_bias_log.json"):
+            assert json.loads(a.read_text()) == json.loads(b.read_text()), rel
+    assert _tree(runs["plain"]) == _tree(runs["world1"])

@@ -223,6 +223,22 @@ def test_attention_kernel_on_encoder_views_matches_plain_on_gpu(cuda_device, dty
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("H", [6, 3])
+@pytest.mark.parametrize("B, N", [(64, 199), (16, 799), (16, 1499)])
+def test_attention_kernel_on_a_tensor_parallel_ranks_heads_on_gpu(cuda_device, dtype, H, B, N):
+    """A tp rank's heads (12 / tp): q, k and v are views of the rank's own
+    (B, N, 3, H, 64) projection output, an n-stride of 3 * H * 64 (1152 at
+    tp 2, 576 at tp 4); the tensor maps and the (B, H) grid follow H."""
+    q, k, v = _encoder_views(B, H, N, dtype, cuda_device, seed=H * N)
+    lengths = torch.randint(N // 3, N + 1, (B,), generator=torch.Generator().manual_seed(N))
+    lengths[-1] = 0
+    mask = (torch.arange(N)[None, :] >= lengths[:, None]).to(cuda_device)
+    assert q.stride(2) == 3 * H * 64
+    _check_against_plain(q, k, v, mask, 0.125, dtype)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("N", [199, 400, 1499])
 def test_attention_kernel_mask_with_gaps_on_gpu(cuda_device, N):
     """Padded keys in the middle, whole padded key tiles between valid

@@ -40,7 +40,8 @@ def test_port_and_chip_smoke_import_without_jax():
         assert f"{PORT_PKG}.{sub}" in PORT_MODULES
         assert any(m.startswith(f"{PORT_PKG}.{sub}.") for m in PORT_MODULES), sub
     for mod in ("models.d2v_masking", "models.d2v_pretrain", "train.d2v_pretrain",
-                "data.binarized"):  # d2v pretraining
+                "data.binarized",  # d2v pretraining
+                "parallel.mesh", "parallel.sharded"):  # the process grid
         assert f"{PORT_PKG}.{mod}" in PORT_MODULES, mod
     env = dict(os.environ, PYTHONPATH=str(REPO) + os.pathsep + os.environ.get("PYTHONPATH", ""))
     res = subprocess.run(

@@ -293,8 +293,6 @@ def test_fused_step_draws_from_its_generator_and_rejects_a_mesh(rng):
                  for k, v in Emotion2vecEncoder(tenc_cfg).state_dict().items()}
     enc, head, tx, state0 = init_fused(tcfg, enc_state, torch.Generator().manual_seed(1),
                                        device="cpu")
-    with pytest.raises(NotImplementedError, match="multi-GPU"):
-        make_fused_extract_train_step(enc, head, tx, tcfg, mesh=object())
     step = make_fused_extract_train_step(enc, head, tx, tcfg)
     batch = _fused_port(_wav_batch(rng, [300, 200, 300, 250], 300, labeled=True))
     noisy = batch._replace(labels=torch.full((4,), -1), ids=torch.arange(4))
@@ -308,6 +306,23 @@ def test_fused_step_draws_from_its_generator_and_rejects_a_mesh(rng):
     assert any(not torch.equal(s1.ssrl.student[k], s3.ssrl.student[k]) for k in s1.ssrl.student)
     for k in s1.ssrl.teacher:  # post-warmup: the teacher follows the student
         assert not torch.equal(s1.ssrl.teacher[k], state0.ssrl.teacher[k])
+    # a mesh of one process (gloo) takes the same step: the same draws from
+    # the same seed, bit for bit
+    import torch_dist
+
+    from robust_speech_emotion_recognition_via_dynamic_asymmetric_distillation_in_noisy_environments_tpu_torch.parallel import (
+        make_mesh,
+    )
+
+    with torch_dist.torchrun_env(world=1):
+        mesh = make_mesh(device="cpu")
+        meshed = make_fused_extract_train_step(enc, head, tx, tcfg, mesh=mesh)
+        s4, m4 = meshed(state0, batch, noisy, scalars, torch.zeros(4),
+                        torch.Generator().manual_seed(5))
+    for k in s1.ssrl.student:
+        assert torch.equal(s4.ssrl.student[k], s1.ssrl.student[k]), k
+    for k in ("total_loss", "ecda_loss", "consistency_loss"):
+        assert torch.equal(m4[k], m1[k]), k
 
 
 def test_dropout_rate_and_scale():

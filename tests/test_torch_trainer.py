@@ -364,16 +364,25 @@ def test_cli_dad_writes_the_jax_cli_tree(tmp_path, monkeypatch):
 
 
 def test_cli_dad_refuses_what_is_not_ported(tmp_path, capsys, caplog, monkeypatch):
-    """The multi-GPU flags are refused, naming ROADMAP item 9; ``--resident
-    on`` and ``--from-wav`` are ported (the latter fails without
-    ``--checkpoint``, as the JAX CLI does)."""
+    """``--dp``/``--tp`` run under ``torchrun`` only: outside it, or at a
+    world size other than max(dp, 1) * tp, the command exits 2 and prints
+    the launch to use; a world of one runs the mesh (gloo on the CPU).
+    ``--resident on`` and ``--from-wav`` are ported (the latter fails
+    without ``--checkpoint``, as the JAX CLI does)."""
+    import torch_dist
+
     monkeypatch.chdir(tmp_path)
     base = ["dad", "--corpus", "iemocap", "--device", "cpu"]
-    for extra in (["--clean", "c", "--noisy", "n", "--dp", "2"],
-                  ["--clean", "c", "--noisy", "n", "--tp", "2"],
-                  ["--from-wav", "manifests", "--dp", "2"]):
+    pkg = cli.__name__.split(".")[0]
+    for extra, n in ((["--clean", "c", "--noisy", "n", "--dp", "2"], 2),
+                     (["--from-wav", "manifests", "--tp", "2"], 2),
+                     (["--from-wav", "manifests", "--dp", "2", "--tp", "2"], 4)):
         assert cli.main(base + extra) == 2
-        assert "item 9" in capsys.readouterr().err
+        err = capsys.readouterr().err
+        assert f"torchrun --standalone --nproc_per_node {n} -m {pkg} dad" in err
+    with torch_dist.torchrun_env(world=3):
+        assert cli.main(base + ["--clean", "c", "--noisy", "n", "--dp", "2"]) == 2
+        assert "needs 2 processes, the launch has 3" in capsys.readouterr().err
     assert "dad" not in cli.NOT_PORTED
     for extra, words in (([], "--clean and --noisy are required"),
                          (["--from-wav", "manifests"], "--from-wav needs --checkpoint")):
@@ -388,9 +397,19 @@ def test_cli_dad_refuses_what_is_not_ported(tmp_path, capsys, caplog, monkeypatc
     assert "resident corpus: 36 clips" in caplog.text
     cfg = dad_preset("iemocap", clean_data_dir=clean, noisy_data_dir=noisy, input_dim=D,
                      batch_size=8)
-    with pytest.raises(NotImplementedError, match="item 9"):
-        CrossDomainTrainer(cfg, mesh=object(), device="cpu")
     assert CrossDomainTrainer(cfg, resident=True, device="cpu")._resident is not None
+    # the mesh runs: a world of one through the CLI, streamed (resident auto is
+    # off under a mesh) and per step
+    caplog.clear()
+    with torch_dist.torchrun_env(world=1), caplog.at_level("INFO"):
+        assert cli.main(base + ["--clean", clean, "--noisy", noisy, "--dp", "1", "--name", "dp",
+                                "--epochs", "2", "--warmup-epochs", "1",
+                                "--batch-size", "8"]) == 0
+    assert "resident corpus" not in caplog.text
+    hist = os.path.join("iemocap_mutil-noisy_cross_domain_results", "dp", "root1", "white",
+                        "10db", "fold_1", "reports", "training_history.json")
+    with open(hist) as f:
+        assert len(json.load(f)["total_loss"]) == 2
 
 
 def test_cli_dad_without_a_gpu_and_without_device_cpu_fails(tmp_path, monkeypatch):
