@@ -4,7 +4,8 @@ serving path, the fused-norm probe, the conv front end through its kernel,
 the fused extract+train step, the feature-level trainer, the fused
 wav->train trainer, stage 1 (manifest, injection, extraction) with
 inference, the supervised pretrain, the experiment harness and the
-analyses, and d2v self-supervised pretraining of the encoder.
+analyses, d2v self-supervised pretraining of the encoder, and the DAD and
+d2v paths over a (dp, tp) process grid.
 
     python3 chip_smoke.py
 
@@ -190,7 +191,30 @@ Phases (any failure raises and the script exits non-zero without a result):
     by phase 9's kernel-vs-plain criteria, launches counted. ``--only
     parallel`` builds attention.cu, writes phase 9's corpus and runs phases
     1, 2 and 13.
-14. prints the ``nvidia-smi`` line, a ``kernels`` JSON line (all four
+14. d2v pretraining over the (dp, tp) process grid, on phase 9's corpus
+    and checkpoint. (a) ``cli d2v-pretrain`` at phase 12's settings (the
+    JAX defaults, full width, bf16, dropout on), cut to 10 steps over 160
+    clips of Sessions 1-4 with one validation (32 Session-5 clips) and one
+    checkpoint (both at the end), ``--resident off``, once plain and once
+    under ``torchrun --nproc_per_node 1`` with ``--dp 1`` (a world of one
+    over NCCL), each in a worker process: the history, the last state and
+    both encoder exports bit for bit; ms a step both ways (steps 2-9, CUDA
+    events). (b) two worker processes on the
+    one card over gloo at full width, from phase 9's checkpoint and one
+    generator seed, dropout on: 3 d2v steps at (dp, tp) = (2, 1) and at
+    (1, 2), at phase 12's card-vs-CPU config (f32, B 2, 2 s crops: metrics
+    and weights by its criterion) and at phase 12's config (bf16, the
+    global batch of 16 clips of 10 s: metrics by phase 9's criterion, as
+    each rank's partial sums round to bf16 before they are summed; the
+    gathered 3-step update within 0.25 of its norm), each held to one
+    process at the global batch,
+    the same metrics on both ranks. (c) the (1, 2) run's gathered encoder
+    extracts 16 Session-5 clips through the attention kernel on 6 heads a
+    rank (12 launches a pass on each rank), held to plain attention in one
+    process by phase 9's 2e-2 a clip. Prints the phase's seconds.
+    ``--only d2v-parallel`` builds attention.cu, writes phase 9's corpus
+    and runs phases 1, 2 and 14.
+15. prints the ``nvidia-smi`` line, a ``kernels`` JSON line (all four
     kernels; the conv entry sums its seven layers' numbers), then the
     result line ``{"ok": true, "device": {...}}`` last.
 """
@@ -3606,14 +3630,401 @@ def run_parallel(root: str, manifests: str, ckpt: str) -> dict:
     return dict(launches=a["launches"] + b["launches"], world1=a, two_ranks=b)
 
 
+# ---------------------------------------------------------------------------
+# phase 14: d2v pretraining over the (dp, tp) process grid
+
+# 14(a): phase 12's command at the JAX defaults, cut to D2VP_STEPS steps
+# (warmup 2) over the first D2VP_TRAIN clips of Sessions 1-4 that the d2v
+# dataset keeps, one validation (the final one) over D2VP_VALID Session-5
+# clips and one checkpoint (the final one)
+D2VP_STEPS, D2VP_TRAIN, D2VP_VALID = 10, 160, 32
+# 14(b): D2VP_GRID_STEPS steps of phase 12's step (its pcfg: 40 steps,
+# warmup 10) at its global batch (16 clips of 10 s, clone_batch 8), bf16;
+# and of phase 12's card-vs-CPU config (f32, B 2, 2 s crops, clone_batch 2),
+# both with dropout on
+D2VP_GRID_STEPS = 3
+
+
+def write_d2v_parallel_manifests(manifests: str, out: str) -> dict:
+    """train.tsv (D2VP_TRAIN clips of Sessions 1-4) and valid.tsv (D2VP_VALID
+    of Session 5), each clip 2 s or longer, in ``out``."""
+    root, files = read_manifest(manifests)
+    min_n = D2vPretrainConfig().min_sample_size
+    train = [(r, n) for r, n in files if "Ses05" not in r and n >= min_n][:D2VP_TRAIN]
+    valid = [(r, n) for r, n in files if "Ses05" in r and n >= min_n][:D2VP_VALID]
+    os.makedirs(out)
+    for split, rows in (("train", train), ("valid", valid)):
+        with open(f"{out}/{split}.tsv", "w") as f:
+            f.write(root + "\n" + "".join(f"{r}\t{n}\n" for r, n in rows))
+    return dict(dir=out, root=root, valid=valid)
+
+
+def d2v_cli_worker(spec: dict) -> None:
+    """14(a) in a worker process: ``cli.main(argv)`` with a CUDA event
+    before every train step (plain or sharded factory), the process group's
+    backend recorded."""
+    import torch.distributed as dist
+
+    from robust_speech_emotion_recognition_via_dynamic_asymmetric_distillation_in_noisy_environments_tpu_torch.parallel import (
+        d2v_sharded,
+        mesh as mesh_mod,
+    )
+
+    seen, events = {}, []
+    make = mesh_mod.make_mesh
+
+    def spy(*a, **kw):
+        m = make(*a, **kw)
+        seen.update(backend=dist.get_backend(), dp=m.dp, tp=m.tp, device=str(m.device))
+        return m
+
+    def timed_factory(factory):
+        def made(*a, **kw):
+            step = factory(*a, **kw)
+
+            def timed(*sa, **sk):
+                event = torch.cuda.Event(enable_timing=True)
+                event.record()
+                events.append(event)
+                return step(*sa, **sk)
+
+            return timed
+
+        return made
+
+    mesh_mod.make_mesh = spy
+    d2v_models.make_d2v_train_step = timed_factory(d2v_models.make_d2v_train_step)
+    d2v_sharded.make_sharded_d2v_step = timed_factory(d2v_sharded.make_sharded_d2v_step)
+    zero_kernel_launches()
+    t0 = time.perf_counter()
+    rc = cli.main(spec["argv"])
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    # step i's entry: its start to step i+1's; steps 2-9
+    kept = [a.elapsed_time(b) for a, b in zip(events[1:], events[2:])]
+    out = dict(rc=rc, run_s=run_s, mesh=seen, steps=len(events), launches=kernel_launches(),
+               step_ms=float(np.median(kept)), step_ms_range=[min(kept), max(kept)])
+    with open(spec["out"], "w") as f:
+        json.dump(out, f)
+
+
+def same_saved(a, b) -> bool:
+    """Two ``torch.save``d structures (dicts of tensors, nested) bit for bit."""
+    if isinstance(a, dict):
+        return isinstance(b, dict) and set(a) == set(b) and all(same_saved(a[k], b[k])
+                                                                 for k in a)
+    if isinstance(a, torch.Tensor):
+        return isinstance(b, torch.Tensor) and a.dtype == b.dtype and torch.equal(a, b)
+    return a == b
+
+
+def run_d2v_world1(root: str, dirs: dict, ckpt: str) -> dict:
+    """14(a): ``cli d2v-pretrain --dp 1`` under ``torchrun --nproc_per_node
+    1`` (NCCL) against the same command without both, each in a worker
+    process: the history, the last state and both encoder exports bit for
+    bit; ms a step both ways."""
+    argv = ["d2v-pretrain", "--manifests", dirs["dir"], "--init-checkpoint", ckpt,
+            "--steps", str(D2VP_STEPS), "--warmup-steps", "2", "--valid-manifests",
+            dirs["dir"], "--valid-every", str(D2VP_STEPS), "--log-every", "1",
+            "--checkpoint-every", "0", "--resident", "off"]
+    runs = {}
+    for name, extra, torchrun in (("plain", [], False), ("nccl_world1", ["--dp", "1"], True)):
+        cwd = f"{root}/d2vp_{name}"
+        os.makedirs(cwd)
+        spec = dict(kind="d2v_cli", argv=argv + ["--save-dir", f"{cwd}/out"] + extra, cwd=cwd,
+                    out=f"{cwd}/worker.json")
+        t0 = time.perf_counter()
+        wait_workers([run_worker(spec, f"{cwd}/spec.json", torchrun=torchrun)],
+                     f"14(a) {name}")
+        with open(spec["out"]) as f:
+            runs[name] = dict(json.load(f), wall_s=time.perf_counter() - t0, dir=f"{cwd}/out")
+    plain, nccl = runs["plain"], runs["nccl_world1"]
+    if plain["rc"] != 0 or nccl["rc"] != 0:
+        raise AssertionError(f"14(a): cli d2v-pretrain returned {plain['rc']} / {nccl['rc']}")
+    if nccl["mesh"].get("backend") != "nccl" or (nccl["mesh"]["dp"], nccl["mesh"]["tp"]) != (1, 1):
+        raise AssertionError(f"14(a): expected a (1, 1) NCCL mesh, got {nccl['mesh']}")
+    if plain["mesh"] or any(any(r["launches"].values()) for r in (plain, nccl)):
+        raise AssertionError("14(a): a mesh in the plain run, or a kernel launched by training")
+    same = {}
+    hists = []
+    for r in (plain, nccl):
+        with open(f"{r['dir']}/d2v_training_history.json") as f:
+            hists.append([{k: v for k, v in e.items() if k != "wall_s"} for e in json.load(f)])
+    same["history"] = hists[0] == hists[1]
+    if [e["step"] for e in hists[0] if "loss" in e] != list(range(1, D2VP_STEPS + 1)):
+        raise AssertionError(f"14(a): history steps {[e['step'] for e in hists[0]]}")
+    for name in ("d2v_last_state.pt", "encoder_params.pt", "encoder_params_best.pt"):
+        a, b = (torch.load(f"{r['dir']}/{name}", weights_only=True) for r in (plain, nccl))
+        same[name] = same_saved(a, b)
+        del a, b
+    if not all(same.values()):
+        raise AssertionError(f"14(a): the world-1 NCCL run differs from the plain run: {same}")
+    out = dict(steps=D2VP_STEPS, bit_equal=same,
+               **{n: {k: r[k] for k in ("step_ms", "step_ms_range", "steps", "run_s", "wall_s",
+                                        "mesh")} for n, r in runs.items()})
+    print("d2v-parallel: world-1 " + json.dumps(out), flush=True)
+    return out
+
+
+_ENCODERS = {}  # the checkpoint's encoder state a process loads once, by dtype
+
+
+def d2v_grid_inputs(spec: dict, f32: bool):
+    """14(b)'s model, optimizer and full init state (phase 12's config:
+    the JAX CLI defaults, bf16, dropout on, from phase 9's checkpoint; with
+    ``f32``, its card-vs-CPU config) and its global batch: the first of the
+    train manifest's crop batches. The same in every process."""
+    cfg = EncoderConfig(dtype="float32") if f32 else EncoderConfig()
+    pcfg = D2vPretrainConfig(max_steps=D2V_STEPS, warmup_steps=D2V_WARMUP)
+    if f32:
+        pcfg = dataclasses.replace(pcfg, batch_size=D2V_CPU_B, crop_size=D2V_CPU_CROP,
+                                   clone_batch=D2V_CPU_CLONE)
+    model, tx, state = init_d2v_state(
+        cfg, pcfg, torch.Generator("cuda").manual_seed(pcfg.random_seed), torch.device("cuda"))
+    if cfg.dtype not in _ENCODERS:
+        _ENCODERS[cfg.dtype] = load_emotion2vec_checkpoint(spec["ckpt"], cfg)
+    params = {**state.params, **{k: v.cuda() for k, v in _ENCODERS[cfg.dtype].items()}}
+    state = state._replace(params=params, ema_blocks=init_ema_blocks(params, cfg, pcfg))
+    wav, pad = next(d2v_train_mod.WavCropDataset([spec["manifests"]], pcfg).batches(
+        0, pcfg.batch_size))
+    return cfg, pcfg, model, tx, state, wav, pad
+
+
+def d2v_grid_steps(spec: dict, f32: bool, mesh=None) -> dict:
+    """D2VP_GRID_STEPS d2v steps over ``mesh`` (else one process) from a
+    generator seeded alike: the global metrics and the gathered state."""
+    from robust_speech_emotion_recognition_via_dynamic_asymmetric_distillation_in_noisy_environments_tpu_torch.parallel import (
+        gather_d2v_state,
+        make_sharded_d2v_step,
+        place_d2v_state,
+    )
+
+    cfg, pcfg, model, tx, state, wav, pad = d2v_grid_inputs(spec, f32)
+    init = {k: v.float().cpu() for k, v in state.params.items()}
+    if mesh is None:
+        step = make_d2v_train_step(model, tx)
+        wav, pad = torch.from_numpy(wav).cuda(), torch.from_numpy(pad).cuda()
+    else:
+        step = make_sharded_d2v_step(model, tx, mesh)
+        state = place_d2v_state(state, mesh)
+    gen = torch.Generator("cuda").manual_seed(7)
+    metrics = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(D2VP_GRID_STEPS):
+        state, m = step(state, wav, pad, gen)
+        metrics.append({k: float(v) for k, v in m.items()})
+    steps_s = time.perf_counter() - t0
+    if mesh is not None:
+        state = gather_d2v_state(state, mesh)
+    update = {k: v.float().cpu() - init[k] for k, v in state.params.items()}
+    return dict(metrics=metrics, update=update, params=state.params, steps_s=steps_s,
+                lr=pcfg.learning_rate, embed_dim=cfg.embed_dim)
+
+
+def d2v_update_rel(got: dict, want: dict) -> float:
+    """The norm of the difference of two updates over the reference's."""
+    return math.sqrt(sum(float((got[k] - u).norm()) ** 2 for k, u in want.items())
+                     / sum(float(u.norm()) ** 2 for u in want.values()))
+
+
+def d2v_param_excess(got: dict, want: dict, e: int) -> tuple:
+    """The largest excess of |got - want| over PRETRAIN_CARD_CPU_TOL, the
+    key projection biases' key slices left out, and those slices' largest
+    difference (held to 2 lr a step instead, as phase 12 holds them)."""
+    tol = PRETRAIN_CARD_CPU_TOL
+    worst, worst_kbias = 0.0, 0.0
+    for k, w in want.items():
+        g = got[k]
+        excess = (g - w).abs() - tol["atol"] - tol["rtol"] * w.abs()
+        if k.endswith("attn.qkv.bias"):
+            worst_kbias = max(worst_kbias, float((g - w)[e:2 * e].abs().max()))
+            excess = torch.cat([excess[:e], excess[2 * e:]])
+        worst = max(worst, float(excess.max()))
+    return worst, worst_kbias
+
+
+def d2v_rank_worker(spec: dict) -> None:
+    """14(b) and (c) in one of two processes on ``cuda:0`` over gloo: the d2v
+    steps at (dp, tp) = (2, 1), then at (1, 2), in f32 and then in bf16,
+    each against the one-process run saved by the parent; at (1, 2) in bf16
+    the gathered encoder extracting a batch of Session-5 clips through the
+    attention kernel on the rank's 6 heads. Writes its results with
+    ``torch.save``."""
+    import torch.distributed as dist
+
+    from robust_speech_emotion_recognition_via_dynamic_asymmetric_distillation_in_noisy_environments_tpu_torch.models.d2v_pretrain import (
+        encoder_params,
+    )
+    from robust_speech_emotion_recognition_via_dynamic_asymmetric_distillation_in_noisy_environments_tpu_torch.parallel import (
+        make_mesh,
+    )
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    out = {}
+    for case, f32, tp in (("f32_21", True, 1), ("f32_12", True, 2), ("21", False, 1),
+                          ("12", False, 2)):
+        want = torch.load(spec["single_f32" if f32 else "single"], weights_only=True)
+        mesh = make_mesh(2, tp=tp, backend="gloo", device="cuda:0")
+        run = d2v_grid_steps(spec, f32, mesh)
+        out[case] = dict(metrics=run["metrics"], steps_s=run["steps_s"],
+                         update_rel_diff=d2v_update_rel(run["update"], want["update"]),
+                         update_norm=math.sqrt(sum(float(u.norm()) ** 2
+                                                   for u in run["update"].values())))
+        if f32:
+            got = {k: v.float().cpu() for k, v in run["params"].items()}
+            excess, kbias = d2v_param_excess(got, want["params"], run["embed_dim"])
+            out[case].update(param_excess_over_tol=excess, key_bias_max_abs_diff=kbias,
+                             key_bias_bound=2 * run["lr"] * D2VP_GRID_STEPS)
+        del want
+        if case == "12":
+            sd = encoder_params(run["params"])
+            del run
+            gc.collect()
+            torch.cuda.empty_cache()
+            batch = torch.load(spec["batch"], weights_only=True)
+            ex = FeatureExtractor(dataclasses.replace(EncoderConfig(), use_flash_attention=True),
+                                  sd, batch_size=EXTRACT_BATCH, mesh=mesh)
+            zero_kernel_launches()
+            feats, _ = ex.forward_batch(batch["wav"], batch["mask"])
+            out["extract_12"] = dict(launches=kernel_launches(),
+                                     heads=ex.model.block_0.attn.num_heads)
+            if mesh.is_writer:
+                out["extract_12"]["feats"] = feats.cpu()
+                torch.save({k: v.cpu() for k, v in sd.items()}, spec["encoder"])
+            del ex, sd
+        else:
+            del run
+        gc.collect()
+        torch.cuda.empty_cache()
+    torch.save(out, spec["out"])
+    dist.destroy_process_group()
+
+
+def session5_batch(dirs: dict) -> dict:
+    """The first EXTRACT_BATCH Session-5 clips of the manifest, padded to the
+    longest: wav (B, T) f32 and its padding mask."""
+    clips = [read_wav(os.path.join(dirs["root"], rel))[0].astype(np.float32)
+             for rel, _n in dirs["valid"][:EXTRACT_BATCH]]
+    T = max(len(c) for c in clips)
+    wav = np.zeros((len(clips), T), np.float32)
+    mask = np.ones((len(clips), T), bool)
+    for i, c in enumerate(clips):
+        wav[i, :len(c)], mask[i, :len(c)] = c, False
+    return dict(wav=torch.from_numpy(wav), mask=torch.from_numpy(mask))
+
+
+def run_d2v_two_ranks(root: str, dirs: dict, ckpt: str) -> dict:
+    """14(b) and (c): two processes on the one card over gloo at full
+    width, held to one process at the global batch; the (1, 2) run's
+    encoder extracting through the kernel against plain attention."""
+    spec = dict(ckpt=ckpt, manifests=dirs["dir"], single=f"{root}/d2vp_single.pt",
+                single_f32=f"{root}/d2vp_single_f32.pt", batch=f"{root}/d2vp_batch.pt",
+                encoder=f"{root}/d2vp_encoder.pt")
+    single_metrics, single_s = {}, {}
+    for f32 in (True, False):
+        single = d2v_grid_steps(spec, f32)
+        torch.save(dict(update=single["update"],
+                        params={k: v.float().cpu() for k, v in single["params"].items()}),
+                   spec["single_f32" if f32 else "single"])
+        single_metrics[f32], single_s[f32] = single["metrics"], single["steps_s"]
+        del single
+        gc.collect()
+        torch.cuda.empty_cache()
+    batch = session5_batch(dirs)
+    torch.save(batch, spec["batch"])
+    port = str(_free_port())
+    procs, outs = [], []
+    for rank in range(2):
+        rs = dict(spec, kind="d2v_ranks", out=f"{root}/d2vp_rank{rank}.pt")
+        env = dict(MASTER_ADDR="localhost", MASTER_PORT=port, WORLD_SIZE="2", RANK=str(rank),
+                   LOCAL_RANK="0")
+        procs.append(run_worker(rs, f"{root}/d2vp_rank{rank}.json", env=env))
+        outs.append(rs["out"])
+    t0 = time.perf_counter()
+    wait_workers(procs, "14(b)", timeout=600.0)
+    ranks_s = time.perf_counter() - t0
+    got = [torch.load(o, weights_only=False) for o in outs]
+    errors, out = [], dict(ranks_s=ranks_s, single_steps_s=single_s[False],
+                           single_f32_steps_s=single_s[True], single_metrics=single_metrics[False])
+    # f32 at phase 12's card-vs-CPU config: both grids by that criterion,
+    # metrics and weights. bf16 at full width: both grids by phase 9's, as
+    # each rank rounds its partial sums to bf16 before they are summed
+    # (dp: the weight gradients of its rows; tp: its heads' and hidden
+    # share's products), and Adam's update, about lr * sign(g), turns those
+    # roundings into steps apart where a gradient is near 0
+    crit = {"21": TRAINER_REL_TOL, "12": TRAINER_REL_TOL,
+            "f32_21": PRETRAIN_CARD_CPU_TOL, "f32_12": PRETRAIN_CARD_CPU_TOL}
+    for case, tol in crit.items():
+        g = got[0][case]
+        want = single_metrics[case.startswith("f32")]
+        keys = list(want[0])
+        if any(r[case]["metrics"] != g["metrics"] for r in got[1:]):
+            errors.append(f"{case}: the ranks read different metrics")
+        ok = all(close([m[k] for m in g["metrics"]], [m[k] for m in want], tol) for k in keys)
+        share = {k: max(abs(a[k] - b[k]) / (tol["atol"] + tol["rtol"] * abs(b[k]))
+                        for a, b in zip(g["metrics"], want)) for k in keys}
+        out[case] = dict(metrics_within=ok, metrics_share_of_tol=share, metrics=g["metrics"],
+                         **{k: v for k, v in g.items() if k != "metrics"})
+        if case.startswith("f32"):
+            ok = ok and g["param_excess_over_tol"] <= 0 and \
+                g["key_bias_max_abs_diff"] <= g["key_bias_bound"]
+        elif g["update_rel_diff"] > UPDATE_REL_TOL:
+            ok = False
+        if not ok:
+            errors.append(f"{case} vs one process: {out[case]}")
+    # 14(c): the (1, 2)-pretrained encoder through the kernel on 6 heads a
+    # rank, against plain attention in one process
+    sd = torch.load(spec["encoder"], weights_only=True)
+    plain = FeatureExtractor(EncoderConfig(), sd, batch_size=EXTRACT_BATCH)
+    zero_kernel_launches()
+    want, fmask = plain.forward_batch(batch["wav"].cuda(), batch["mask"].cuda())
+    if any(kernel_launches().values()):
+        raise AssertionError("14(c): the plain attention path launched a kernel")
+    del plain
+    feats = got[0]["extract_12"]["feats"]
+    valid = (~fmask).cpu()
+    want = want.float().cpu()
+    rel = [float((feats[i][valid[i]] - want[i][valid[i]]).norm() / want[i][valid[i]].norm())
+           for i in range(len(feats))]
+    launches = [r["extract_12"]["launches"] for r in got]
+    heads = [r["extract_12"]["heads"] for r in got]
+    out["extract_12"] = dict(clips=len(rel), max_clip_rel_err=max(rel),
+                             median_clip_rel_err=float(np.median(rel)), heads=heads,
+                             launches=launches, frames=int(fmask.shape[1]))
+    want_launches = dict(flash_attention=12, fused_layernorm=0, fused_conv_ln_gelu=0,
+                         copy_rows=0)
+    if heads != [6, 6] or any(lc != want_launches for lc in launches):
+        errors.append(f"14(c): heads {heads}, launches {launches} (12 a pass on each rank)")
+    if not (np.isfinite(feats.numpy()).all() and max(rel) <= FEAT_REL_TOL_BF16):
+        errors.append(f"14(c): a clip's relative error {max(rel):.3e} > {FEAT_REL_TOL_BF16}")
+    print("d2v-parallel: two ranks " + json.dumps(out), flush=True)
+    if errors:
+        raise AssertionError("14: " + "; ".join(errors))
+    return dict(launches=sum(lc["flash_attention"] for lc in launches), **out)
+
+
+def run_d2v_parallel(root: str, manifests: str, ckpt: str) -> dict:
+    """Phase 14: 14(a), then 14(b) and (c); the attention launches."""
+    t0 = time.perf_counter()
+    dirs = write_d2v_parallel_manifests(manifests, f"{root}/d2vp_manifests")
+    a = run_d2v_world1(root, dirs, ckpt)
+    b = run_d2v_two_ranks(root, dirs, ckpt)
+    seconds = time.perf_counter() - t0
+    print(f"d2v-parallel: phase 14 in {seconds:.1f} s", flush=True)
+    return dict(launches=b["launches"], world1=a, two_ranks=b, seconds=seconds)
+
+
 def run_stage1_and_fused(only_fused: bool = False, experiments: bool = True,
-                         d2v: bool = True, fused: bool = True, parallel: bool = True) -> tuple:
-    """Phases 9-13 in one directory: the raw IEMOCAP-layout corpus and
+                         d2v: bool = True, fused: bool = True, parallel: bool = True,
+                         d2v_parallel: bool = True) -> tuple:
+    """Phases 9-14 in one directory: the raw IEMOCAP-layout corpus and
     ``cli manifest`` (phase 10's first steps), the fused trainer on that
     manifest (phase 9, unless not ``fused``), then unless ``only_fused`` the
     rest of phase 10, and with ``experiments`` phase 11 on its stores; with
     ``d2v`` phase 12 on phase 9's corpus and checkpoint; with ``parallel``
-    phase 13 on them."""
+    phase 13 on them; with ``d2v_parallel`` phase 14 on them."""
     with tempfile.TemporaryDirectory(prefix="dad_stage1_") as root, contextlib.chdir(root):
         t0 = time.perf_counter()
         corpus = write_iemocap_corpus(root, seed=0)
@@ -3636,7 +4047,8 @@ def run_stage1_and_fused(only_fused: bool = False, experiments: bool = True,
             exp = run_experiments(root, manifests, ckpt, pre["stores"]) if experiments else None
         d2v_info = run_d2v(root, manifests, ckpt) if d2v else None
         par = run_parallel(root, manifests, ckpt) if parallel else None
-    return fused_info, pre, exp, d2v_info, par
+        d2vp = run_d2v_parallel(root, manifests, ckpt) if d2v_parallel else None
+    return fused_info, pre, exp, d2v_info, par, d2vp
 
 
 T_START = time.perf_counter()
@@ -3645,7 +4057,7 @@ T_START = time.perf_counter()
 def parse_args(argv=None) -> argparse.Namespace:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--only", choices=("attention", "conv", "trainer", "fused", "preprocess",
-                                      "experiments", "d2v", "parallel"),
+                                      "experiments", "d2v", "parallel", "d2v-parallel"),
                    help="attention: build and run phases 1-3 only; conv: build conv.cu and "
                         "run phases 1, 2 and 6, then the conv grid comparison (to time two "
                         "checkouts in one call); trainer: build nothing, run phase 8 only; "
@@ -3656,7 +4068,7 @@ def parse_args(argv=None) -> argparse.Namespace:
                         "reads phase 10's stores); d2v: build attention.cu and run phases "
                         "1, 2 and 12 on phase 9's corpus and checkpoint; "
                         "parallel: build attention.cu, write phase 9's corpus and run phases "
-                        "1, 2 and 13")
+                        "1, 2 and 13; d2v-parallel: the same with phase 14")
     p.add_argument("--worker", default=None, help=argparse.SUPPRESS)
     return p.parse_args(argv)
 
@@ -3669,7 +4081,9 @@ def main(argv=None) -> int:
     if args.worker:  # phase 13's worker processes
         with open(args.worker) as f:
             spec = json.load(f)
-        (cli_worker if spec["kind"] == "cli" else rank_worker)(spec)
+        workers = dict(cli=cli_worker, ranks=rank_worker, d2v_cli=d2v_cli_worker,
+                       d2v_ranks=d2v_rank_worker)
+        workers[spec["kind"]](spec)
         return 0
     smi = nvidia_smi_line()
     print(f"device: {smi} (torch {torch.__version__}, CUDA {torch.version.cuda})",
@@ -3680,7 +4094,8 @@ def main(argv=None) -> int:
 
     sources = {None: SOURCES, "trainer": (), "fused": ("attention",),
                "preprocess": ("attention",), "experiments": ("attention",),
-               "d2v": ("attention",), "parallel": ("attention",)}.get(args.only, (args.only,))
+               "d2v": ("attention",), "parallel": ("attention",),
+               "d2v-parallel": ("attention",)}.get(args.only, (args.only,))
     t0 = time.perf_counter()
     if sources:
         with concurrent.futures.ThreadPoolExecutor(len(sources)) as pool:
@@ -3694,11 +4109,12 @@ def main(argv=None) -> int:
 
     if args.only == "trainer":
         run_feature_trainer()
-    elif args.only in ("fused", "preprocess", "experiments", "d2v", "parallel"):
-        run_stage1_and_fused(only_fused=args.only in ("fused", "d2v", "parallel"),
+    elif args.only in ("fused", "preprocess", "experiments", "d2v", "parallel", "d2v-parallel"):
+        run_stage1_and_fused(only_fused=args.only in ("fused", "d2v", "parallel", "d2v-parallel"),
                              experiments=args.only == "experiments", d2v=args.only == "d2v",
-                             fused=args.only not in ("d2v", "parallel"),
-                             parallel=args.only == "parallel")
+                             fused=args.only not in ("d2v", "parallel", "d2v-parallel"),
+                             parallel=args.only == "parallel",
+                             d2v_parallel=args.only == "d2v-parallel")
     elif args.only == "conv":
         # the serving slice's encoder weights and the training slice's noisy batch
         enc_cfg = EncoderConfig(dtype="bfloat16", use_flash_attention=True)
@@ -3724,7 +4140,7 @@ def main(argv=None) -> int:
     del clean, noisy
     torch.cuda.empty_cache()
     run_feature_trainer()
-    fused, pre, exp, d2v_info, par = run_stage1_and_fused()
+    fused, pre, exp, d2v_info, par, d2vp = run_stage1_and_fused()
 
     def entry(name, source, replaces, launches, r):
         return dict(name=name, route="cuda", source=f"{PORT_PKG}/csrc/{source}",
@@ -3743,7 +4159,8 @@ def main(argv=None) -> int:
     kernels = [
         entry("flash_attention", "attention.cu", f"{JAX_PKG}/ops/attention.py:28",
               slice_info["launches"] + train["launches"] + fused["launches"] + pre["launches"]
-              + exp["launches"] + d2v_info["launches"] + par["launches"], step_attn),
+              + exp["launches"] + d2v_info["launches"] + par["launches"] + d2vp["launches"],
+              step_attn),
         entry("fused_layernorm", "fused_norm.cu", f"{JAX_PKG}/ops/fused_norm.py:44",
               norm["launches"]["fused_layernorm"], norm["rows"][("ln_gelu", torch.bfloat16)]),
         entry("fused_conv_ln_gelu", "conv.cu", f"{JAX_PKG}/ops/conv.py:86",

@@ -50,10 +50,10 @@ takes dp only) and run one process a device under ``torchrun``, with
 max(dp, 1) * tp processes:
 
     torchrun --standalone --nproc_per_node 2 -m <pkg> dad --from-wav ... --dp 2
+    torchrun --standalone --nproc_per_node 4 -m <pkg> d2v-pretrain ... --dp 2 --tp 2
 
 Outside ``torchrun`` or at another world size the command exits with
-status 2 and prints the launch to use; ``d2v-pretrain --dp/--tp`` exits
-with status 2 (ROADMAP.md §1 item 9.5).
+status 2 and prints the launch to use.
 """
 
 from __future__ import annotations
@@ -663,11 +663,9 @@ def _add_dad_parser(sub) -> None:
 
 def _cmd_d2v_pretrain(args):
     from .configs import D2vPretrainConfig, EncoderConfig, load_encoder_json
+    from .parallel.mesh import flag_mesh
     from .train.d2v_pretrain import run_d2v_pretrain
-    from .utils import MESH_NOT_PORTED
 
-    if args.dp > 0 or args.tp > 1:
-        return _refuse(f"--dp/--tp: {MESH_NOT_PORTED}")
     enc_kw = {}
     if args.fast:
         # the JAX package's --fast encoder knobs; --encoder-json still wins
@@ -683,16 +681,18 @@ def _cmd_d2v_pretrain(args):
         adam_mu_dtype=args.adam_mu_dtype, remat_blocks=args.remat,
     )
     weights = [float(w) for w in args.weights.split(",")] if args.weights else None
-    run_d2v_pretrain(
-        cfg, pcfg, args.manifests, args.save_dir, weights=weights,
-        init_checkpoint=args.init_checkpoint, log_every=args.log_every,
-        checkpoint_every=args.checkpoint_every, resume=args.resume,
-        binarized=args.binarized, transfer_dtype=args.transfer_dtype,
-        scan_chunk=args.scan_chunk, valid_manifests=args.valid_manifests,
-        valid_split=args.valid_split, valid_every=args.valid_every,
-        resident=RESIDENT[args.resident], resident_max_bytes=args.resident_max_bytes,
-        device=args.device,
-    )
+    with flag_mesh(args.dp, args.tp, args.device,
+                   getattr(args, "argv", ["d2v-pretrain"])) as mesh:
+        run_d2v_pretrain(
+            cfg, pcfg, args.manifests, args.save_dir, weights=weights,
+            init_checkpoint=args.init_checkpoint, log_every=args.log_every,
+            checkpoint_every=args.checkpoint_every, resume=args.resume, mesh=mesh,
+            binarized=args.binarized, transfer_dtype=args.transfer_dtype,
+            scan_chunk=args.scan_chunk, valid_manifests=args.valid_manifests,
+            valid_split=args.valid_split, valid_every=args.valid_every,
+            resident=RESIDENT[args.resident], resident_max_bytes=args.resident_max_bytes,
+            device=args.device,
+        )
     return 0
 
 
@@ -736,9 +736,11 @@ def _add_d2v_parsers(sub) -> None:
     p.add_argument("--checkpoint-every", type=int, default=1000)
     p.add_argument("--resume", action="store_true")
     p.add_argument("--dp", type=int, default=0,
-                   help="data-parallel size (not ported yet: > 0 exits 2)")
+                   help="data-parallel mesh size (0 = single device); under torchrun with "
+                        "max(dp, 1) * tp processes")
     p.add_argument("--tp", type=int, default=1,
-                   help="tensor-parallel size (not ported yet: > 1 exits 2)")
+                   help="tensor-parallel split of the encoder blocks (params, EMA and AdamW "
+                        "moments sharded over heads / MLP hidden; composes with --dp)")
     p.add_argument("--binarized", action="store_true",
                    help="--manifests point at packed stores from `d2v-pack`")
     p.add_argument("--prng", choices=["threefry", "rbg"], default="threefry",

@@ -27,14 +27,23 @@ Random draws (masks, mask-token noise, dropout) come from an explicit
 the JAX draws there). The attention kernel is forward-only:
 ``make_d2v_train_step`` refuses a config that would send a differentiated
 block through it.
+
+Over a (dp, tp) process grid (``parallel/d2v_sharded.py``) the loss takes a
+``BatchCut``: the rank runs its rows of the global batch, draws every
+random number of the global batch in the single-process order and keeps
+its rows, divides its partial sums by the global batch's denominators and
+takes the collapse statistics over the global batch, so that the dp sum of
+the ranks' gradients is the global batch's gradient and every rank reads
+the same metrics.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
+from typing import Any, Callable, Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 from torch.func import functional_call
@@ -48,6 +57,7 @@ from .d2v_masking import (
     restore_with_mask_tokens,
     sample_random_mask,
     sample_span_mask,
+    span_mask_uniforms,
 )
 from .emotion2vec import make_block, run_block, torch_dtype
 from .layers import (
@@ -57,6 +67,7 @@ from .layers import (
     Dense,
     PositionalConv,
     convert_padding_mask,
+    draw_keep,
     dropout,
     make_norm,
 )
@@ -110,10 +121,13 @@ class D2vPretrainModel(nn.Module):
     """Student encoder + decoder, under ``Emotion2vecEncoder``'s submodule
     names. ``forward(*args, method=...)`` dispatches to ``local_features``,
     ``positional``, ``contextualize`` or ``decode``, so that
-    ``functional_call`` can run any of them on a params dict."""
+    ``functional_call`` can run any of them on a params dict. ``tp_group``:
+    the blocks of one tensor-parallel rank (its heads and MLP share); the
+    rest is replicated."""
 
-    def __init__(self, cfg: EncoderConfig, pcfg: D2vPretrainConfig):
+    def __init__(self, cfg: EncoderConfig, pcfg: D2vPretrainConfig, tp_group=None):
         super().__init__()
+        self.tp_group = tp_group
         self.cfg, self.pcfg = cfg, pcfg
         dtype = torch_dtype(cfg.dtype)
         self.dtype = dtype
@@ -131,7 +145,7 @@ class D2vPretrainModel(nn.Module):
         names = [f"prenet_block_{i}" for i in range(cfg.prenet_depth)]
         names += [f"block_{i}" for i in range(cfg.depth)]
         for name in names:
-            self.add_module(name, make_block(cfg, return_ffn_target=True))
+            self.add_module(name, make_block(cfg, return_ffn_target=True, tp_group=tp_group))
         self.block_names = tuple(names)
         self.decoder = Decoder1d(pcfg.decoder, cfg.embed_dim, dtype, cfg.fast_ln)
 
@@ -150,16 +164,19 @@ class D2vPretrainModel(nn.Module):
 
     def contextualize(self, x: torch.Tensor, frame_mask: Optional[torch.Tensor] = None,
                       deterministic: bool = True,
-                      generator: Optional[torch.Generator] = None):
+                      generator: Optional[torch.Generator] = None,
+                      rows: Optional[Tuple[int, slice]] = None):
         """prenet LN + prenet blocks + main blocks -> (x, the main blocks'
         FFN targets). With ``pcfg.remat_blocks`` a differentiated block is
-        recomputed in the backward (its dropout masks drawn before it)."""
+        recomputed in the backward (its dropout masks drawn before it).
+        ``rows``: this rank's cut of the global batch's dropout draws
+        (``AltBlock.draw_keeps``)."""
         remat = self.pcfg.remat_blocks and torch.is_grad_enabled()
         x = self.prenet_ln(x).to(self.dtype)
         targets = []
         for name in self.block_names:
             x, t = run_block(getattr(self, name), x, frame_mask, None, deterministic,
-                             generator, remat=remat)
+                             generator, remat=remat, rows=rows)
             if not name.startswith("prenet"):
                 targets.append(t)
         return x, targets
@@ -238,10 +255,21 @@ def make_targets(layer_targets: Sequence[torch.Tensor], pcfg: D2vPretrainConfig)
     return y
 
 
+def dp_sum(x: torch.Tensor, group) -> torch.Tensor:
+    """``x`` summed over the ranks of ``group`` (a copy, without a
+    gradient); ``x`` itself with no group."""
+    if group is None:
+        return x
+    x = x.detach().clone()
+    dist.all_reduce(x, group=group)
+    return x
+
+
 def d2v_loss(pred: torch.Tensor, target: torch.Tensor, weight: torch.Tensor, beta: float,
-             scale: Optional[float]) -> torch.Tensor:
+             scale: Optional[float], group=None) -> torch.Tensor:
     """1/sqrt(D)-scaled L2 (beta 0) or smooth-L1 regression in f32,
-    averaged over the weighted positions."""
+    averaged over the weighted positions; with a dp ``group``, this rank's
+    part of the average over every rank's positions."""
     d = pred.float() - target.float()
     if beta == 0:
         loss = d * d
@@ -252,13 +280,15 @@ def d2v_loss(pred: torch.Tensor, target: torch.Tensor, weight: torch.Tensor, bet
         scale = 1.0 / math.sqrt(pred.shape[-1])
     per_pos = loss.sum(dim=-1) * scale
     w = weight.float()
-    return (per_pos * w).sum() / torch.clamp(w.sum(), min=1.0)
+    return (per_pos * w).sum() / torch.clamp(dp_sum(w.sum(), group), min=1.0)
 
 
-def compute_var(y: torch.Tensor, valid: Optional[torch.Tensor] = None) -> torch.Tensor:
+def compute_var(y: torch.Tensor, valid: Optional[torch.Tensor] = None,
+                group=None) -> torch.Tensor:
     """sqrt(per-dim unbiased variance across tokens + 1e-6), averaged over
     dims: the collapse guards' statistic, over ``valid`` tokens only when
-    given."""
+    given. With a dp ``group`` (and ``valid``), over every rank's tokens:
+    the global mean first, then the global sum of squares about it."""
     z = y.reshape(-1, y.shape[-1]).float()
     if valid is None:
         n = float(max(z.shape[0], 1))
@@ -266,9 +296,9 @@ def compute_var(y: torch.Tensor, valid: Optional[torch.Tensor] = None) -> torch.
         var = ((z - mu) ** 2).sum(dim=0) / max(n - 1.0, 1.0)
     else:
         w = valid.reshape(-1, 1).float()
-        n = torch.clamp(w.sum(), min=1.0)
-        mu = (z * w).sum(dim=0) / n
-        var = (w * (z - mu) ** 2).sum(dim=0) / torch.clamp(n - 1.0, min=1.0)
+        n = torch.clamp(dp_sum(w.sum(), group), min=1.0)
+        mu = dp_sum((z * w).sum(dim=0), group) / n
+        var = dp_sum((w * (z - mu) ** 2).sum(dim=0), group) / torch.clamp(n - 1.0, min=1.0)
     return torch.sqrt(var + 1e-6).mean()
 
 
@@ -362,9 +392,12 @@ class D2vOptimizer:
             nu={k: torch.zeros_like(v) for k, v in params.items()},
         )
 
-    def update(self, grads: Params, state: D2vAdamState, params: Params
-               ) -> Tuple[Params, D2vAdamState]:
-        norm = torch.sqrt(sum(torch.sum(g * g) for g in grads.values()))
+    def update(self, grads: Params, state: D2vAdamState, params: Params,
+               norm: Optional[torch.Tensor] = None) -> Tuple[Params, D2vAdamState]:
+        """``norm``: the gradient's global norm where ``grads`` is a shard
+        of it (``parallel/d2v_sharded.py``), else taken over ``grads``."""
+        if norm is None:
+            norm = torch.sqrt(sum(torch.sum(g * g) for g in grads.values()))
         keep = norm < self.max_norm
         grads = {k: torch.where(keep, g, (g / norm) * self.max_norm) for k, g in grads.items()}
         b1, b2 = self.b1, self.b2
@@ -426,6 +459,23 @@ class D2vDraws(NamedTuple):
     chan: Optional[Tuple[torch.Tensor, torch.Tensor]] = None  # channel span uniforms
 
 
+class BatchCut(NamedTuple):
+    """A rank's cut of the global batch on the process grid: its clips
+    ``rows`` of the global ``batch`` and the dp ``group`` over which the
+    loss statistics are summed."""
+
+    rows: slice
+    batch: int
+    group: Any
+
+
+def _cut_rows(x, rows: slice):
+    """Rows ``rows`` of a tensor or of each tensor of a tuple."""
+    if isinstance(x, tuple):
+        return tuple(t[rows] for t in x)
+    return x[rows]
+
+
 def conv_frames(n_samples: int, conv_layers) -> int:
     """Frames out of the conv front end for ``n_samples`` samples."""
     for _dim, kernel, stride in conv_layers:
@@ -435,13 +485,18 @@ def conv_frames(n_samples: int, conv_layers) -> int:
 
 def make_d2v_loss_fn(model: D2vPretrainModel, train: bool = True):
     """The d2v objective as a function of (params, ema_blocks, wav, wav_pad,
-    generator=None, draws=None) -> (total, metrics). ``train=False`` turns
-    the dropouts off (validation); the masks still draw."""
+    generator=None, draws=None, cut=None) -> (total, metrics).
+    ``train=False`` turns the dropouts off (validation); the masks still
+    draw. ``cut`` (a ``BatchCut``): ``wav``/``wav_pad`` are this rank's rows
+    of the global batch, ``draws`` the global batch's, and the metrics the
+    global batch's; ``total`` is this rank's part of the global loss."""
     pcfg = model.pcfg
 
     def loss_fn(params: Params, ema_blocks: Params, wav: torch.Tensor, wav_pad: torch.Tensor,
-                generator: Optional[torch.Generator] = None, draws: Optional[D2vDraws] = None):
+                generator: Optional[torch.Generator] = None, draws: Optional[D2vDraws] = None,
+                cut: Optional[BatchCut] = None):
         draws = draws or D2vDraws()
+        group = None if cut is None else cut.group
         x_local, frame_mask = _apply(model, params, "local_features", wav, wav_pad)
         b, t, d = x_local.shape
         dev = x_local.device
@@ -460,77 +515,99 @@ def make_d2v_loss_fn(model: D2vPretrainModel, train: bool = True):
             _, layer_ts = _apply(model, t_params, "contextualize", xt, fm, True)
             y = make_targets(layer_ts, pcfg)
 
-        # clone_batch: M masks per clip
+        # clone_batch: M masks per clip. Every draw below is of the global
+        # batch's rows (all_rows; a clip's clones stay together) in the
+        # single-process order, given or from the generator, and cut to this
+        # rank's rows
         m = max(1, pcfg.clone_batch)
         x_rep, fm_rep, y_rep = (torch.repeat_interleave(z, m, dim=0) if m > 1 else z
                                 for z in (x_local, fm, y))
         rows = b * m
+        all_rows, mine = rows, slice(None)
+        if cut is not None:
+            all_rows, mine = cut.batch * m, slice(cut.rows.start * m, cut.rows.stop * m)
+
+        def drawn(given, draw: Callable):
+            return _cut_rows(draw() if given is None else given, mine)
 
         if pcfg.mask_length == 1:
-            mask, n_masked = sample_random_mask(
-                rows, t, pcfg.mask_prob, generator,
-                None if draws.mask is None else draws.mask[0], device=dev)
+            u = drawn(None if draws.mask is None else draws.mask[0],
+                      lambda: torch.rand((all_rows, t), generator=generator, device=dev))
+            mask, n_masked = sample_random_mask(rows, t, pcfg.mask_prob, uniform=u, device=dev)
         else:
+            uniforms = drawn(draws.mask, lambda: span_mask_uniforms(
+                all_rows, t, pcfg.mask_length, generator, dev))
             mask, n_masked = sample_span_mask(
                 rows, t, pcfg.mask_prob, pcfg.mask_length, pcfg.inverse_mask,
-                lengths=(~fm_rep).sum(dim=1), generator=generator, uniforms=draws.mask,
-                device=dev)
+                lengths=(~fm_rep).sum(dim=1), uniforms=uniforms, device=dev)
         info = make_mask_info(mask, n_masked)
+        normal = None
+        if not pcfg.encoder_zero_mask:
+            normal = drawn(draws.tok, lambda: torch.randn(
+                (all_rows, t, d), generator=generator, device=dev, dtype=x_rep.dtype))
         x_masked = apply_mask(x_rep, info, pcfg.encoder_zero_mask, pcfg.mask_noise_std,
-                              generator, draws.tok)
+                              normal=normal)
         if pcfg.mask_channel_prob > 0:
             # channels span-masked per row and zeroed at every frame; they
             # reach the student only through the positional conv (kept
             # tokens are gathered from the features before masking)
+            chan = drawn(draws.chan, lambda: span_mask_uniforms(
+                all_rows, d, pcfg.mask_channel_length, generator, dev))
             ch_mask, _ = sample_span_mask(rows, d, pcfg.mask_channel_prob,
-                                          pcfg.mask_channel_length, generator=generator,
-                                          uniforms=draws.chan, device=dev)
+                                          pcfg.mask_channel_length, uniforms=chan, device=dev)
             x_masked = x_masked * (1.0 - ch_mask[:, None, :].to(x_masked.dtype))
         x_pos = _apply(model, params, "positional", x_masked, fm_rep)
         x_kept = gather_unmasked(x_rep, info) + gather_unmasked(x_pos, info)
         pm_kept = gather_unmasked_mask(fm_rep, info)
         x_enc, _ = _apply(model, params, "contextualize", x_kept, pm_kept, not train,
-                          generator)
+                          generator, None if cut is None else (all_rows, mine))
 
         # decoder input: dropout on the encoder outputs, then mask tokens
         rate = pcfg.decoder.input_dropout
+        len_keep = x_enc.shape[1]
         if train and rate > 0:
-            x_enc = dropout(x_enc, rate, generator, draws.din).to(x_enc.dtype)
-        dec_in = restore_with_mask_tokens(x_enc, info, pcfg.mask_noise_std, generator,
-                                          draws.dtok)
+            keep = None
+            if rate < 1:
+                keep = drawn(draws.din, lambda: draw_keep((all_rows, len_keep, d), rate,
+                                                          generator, dev))
+            x_enc = dropout(x_enc, rate, keep=keep).to(x_enc.dtype)
+        dtok = drawn(draws.dtok, lambda: torch.randn(
+            (all_rows, t - len_keep, d), generator=generator, device=dev, dtype=x_enc.dtype))
+        dec_in = restore_with_mask_tokens(x_enc, info, pcfg.mask_noise_std, normal=dtok)
         pred = _apply(model, params, "decode", dec_in)
 
         w_frame = mask & ~fm_rep
-        loss_frame = d2v_loss(pred, y_rep, w_frame, pcfg.loss_beta, pcfg.loss_scale)
+        loss_frame = d2v_loss(pred, y_rep, w_frame, pcfg.loss_beta, pcfg.loss_scale, group)
         valid = (~fm_rep).float()[..., None]
         nv = torch.clamp(valid.sum(dim=1), min=1.0)
         pred_utt = (pred.float() * valid).sum(dim=1) / nv
         y_utt = (y_rep * valid).sum(dim=1) / nv
         loss_utt = d2v_loss(pred_utt, y_utt, torch.ones(rows, device=dev), pcfg.loss_beta,
-                            pcfg.loss_scale)
+                            pcfg.loss_scale, group)
         total = pcfg.d2v_loss * loss_frame + pcfg.cls_loss * loss_utt
-        metrics = {
-            "loss": total,
-            "d2v_loss": loss_frame,
-            "cls_loss": loss_utt,
-            # collapse telemetry over the masked valid tokens only
-            "target_var": compute_var(y_rep, w_frame),
-            "pred_var": compute_var(pred, w_frame),
-            "masked_pct": w_frame.float().mean(),
-        }
+        with torch.no_grad():
+            metrics = {
+                "loss": dp_sum(total, group),
+                "d2v_loss": dp_sum(loss_frame, group),
+                "cls_loss": dp_sum(loss_utt, group),
+                # collapse telemetry over the masked valid tokens only
+                "target_var": compute_var(y_rep, w_frame, group),
+                "pred_var": compute_var(pred, w_frame, group),
+                "masked_pct": dp_sum(w_frame.float().sum(), group) / float(all_rows * t),
+            }
         return total, metrics
 
     return loss_fn
 
 
 def make_d2v_eval_step(model: D2vPretrainModel):
-    """(params, ema_blocks, wav, pad, generator=None, draws=None) -> metrics
-    with no update and no dropout (the validation pass)."""
+    """(params, ema_blocks, wav, pad, generator=None, draws=None, cut=None)
+    -> metrics with no update and no dropout (the validation pass)."""
     loss_fn = make_d2v_loss_fn(model, train=False)
 
     @torch.no_grad()
-    def eval_fn(params, ema_blocks, wav, wav_pad, generator=None, draws=None):
-        _, metrics = loss_fn(params, ema_blocks, wav, wav_pad, generator, draws)
+    def eval_fn(params, ema_blocks, wav, wav_pad, generator=None, draws=None, cut=None):
+        _, metrics = loss_fn(params, ema_blocks, wav, wav_pad, generator, draws, cut)
         return metrics
 
     return eval_fn
@@ -553,30 +630,43 @@ def check_trainable(cfg: EncoderConfig, pcfg: D2vPretrainConfig) -> None:
         raise ValueError(KERNEL_IN_TRAINING.format(n=FLASH_AUTO_MIN_FRAMES))
 
 
+def d2v_update(model: D2vPretrainModel, tx: D2vOptimizer, loss_fn, state: D2vTrainState,
+               wav, wav_pad, generator=None, draws=None, cut: Optional[BatchCut] = None,
+               reduce_grads: Optional[Callable[[Params], Params]] = None,
+               grad_norm: Optional[Callable[[Params], Optional[torch.Tensor]]] = None):
+    """One update: the loss, its gradient, the optimizer and the EMA.
+    The process grid's step (``parallel/d2v_sharded.py``) gives its
+    ``cut``, the sum of the gradients over dp (``reduce_grads``) and the
+    global norm of sharded gradients (``grad_norm``)."""
+    leaves = {k: v.detach().requires_grad_(True) for k, v in state.params.items()}
+    total, metrics = loss_fn(leaves, state.ema_blocks, wav, wav_pad, generator, draws, cut)
+    grads = torch.autograd.grad(total, list(leaves.values()), allow_unused=True)
+    with torch.no_grad():
+        params = {k: v.detach() for k, v in leaves.items()}
+        grads = {k: torch.zeros_like(params[k]) if g is None else g
+                 for k, g in zip(leaves, grads)}
+        if reduce_grads is not None:
+            grads = reduce_grads(grads)
+        norm = None if grad_norm is None else grad_norm(grads)
+        updates, opt_state = tx.update(grads, state.opt_state, params, norm)
+        params = {k: p + updates[k] for k, p in params.items()}
+        decay = annealed_decay(model.pcfg, state.step)
+        # EMA arithmetic in f32 whatever the storage dtype
+        ema = {k: (decay * e.float() + (1.0 - decay) * params[k].float()).to(e.dtype)
+               for k, e in state.ema_blocks.items()}
+    metrics = {k: v.detach() for k, v in metrics.items()}
+    metrics["ema_decay"] = decay
+    return D2vTrainState(params, ema, opt_state, state.step + 1), metrics
+
+
 def make_d2v_train_step(model: D2vPretrainModel, tx: D2vOptimizer):
     """step(state, wav, wav_pad, generator=None, draws=None) -> (state',
     metrics): the loss, its gradient, the optimizer and the EMA update."""
     check_trainable(model.cfg, model.pcfg)
-    pcfg = model.pcfg
     loss_fn = make_d2v_loss_fn(model, train=True)
 
     def step(state: D2vTrainState, wav, wav_pad, generator=None, draws=None):
-        leaves = {k: v.detach().requires_grad_(True) for k, v in state.params.items()}
-        total, metrics = loss_fn(leaves, state.ema_blocks, wav, wav_pad, generator, draws)
-        grads = torch.autograd.grad(total, list(leaves.values()), allow_unused=True)
-        with torch.no_grad():
-            params = {k: v.detach() for k, v in leaves.items()}
-            grads = {k: torch.zeros_like(params[k]) if g is None else g
-                     for k, g in zip(leaves, grads)}
-            updates, opt_state = tx.update(grads, state.opt_state, params)
-            params = {k: p + updates[k] for k, p in params.items()}
-            decay = annealed_decay(pcfg, state.step)
-            # EMA arithmetic in f32 whatever the storage dtype
-            ema = {k: (decay * e.float() + (1.0 - decay) * params[k].float()).to(e.dtype)
-                   for k, e in state.ema_blocks.items()}
-        metrics = {k: v.detach() for k, v in metrics.items()}
-        metrics["ema_decay"] = decay
-        return D2vTrainState(params, ema, opt_state, state.step + 1), metrics
+        return d2v_update(model, tx, loss_fn, state, wav, wav_pad, generator, draws)
 
     return step
 

@@ -11,9 +11,13 @@ layerdrop (a whole block skipped with probability ``layerdrop``, one draw
 per block), drawn from the caller's generator. ``normalize_wav`` is the
 waveform layer norm the extraction CLI applies before the encoder.
 
-``tp_group`` builds the encoder of one tensor-parallel rank (frozen,
-forward only): its blocks hold the rank's heads and MLP share
-(``parallel/mesh.py::shard_encoder_state``), the rest is replicated.
+``tp_group`` builds the encoder of one tensor-parallel rank: its blocks
+hold the rank's heads and MLP share
+(``parallel/mesh.py::shard_encoder_state``), the rest is replicated. Its
+training forward has a backward (``models/layers.py``), and every rank
+draws each random number of the training forward, layerdrop's included,
+from its own copy of one generator in the single-process order, so that
+the ranks skip the same blocks and enter the same collectives.
 """
 
 from __future__ import annotations
@@ -143,18 +147,21 @@ def make_block(cfg: EncoderConfig, return_ffn_target: bool = False,
 def run_block(block: AltBlock, x: torch.Tensor, frame_mask: Optional[torch.Tensor],
               bias: Optional[torch.Tensor], deterministic: bool,
               generator: Optional[torch.Generator], layerdrop: float = 0.0,
-              remat: bool = False):
+              remat: bool = False, rows: Optional[Tuple[int, slice]] = None):
     """A block's forward in the encoder's stack. Training
     (``deterministic=False``): with probability ``layerdrop`` the whole
     block is skipped (one draw; a skipped block returns its input); else its
     dropout masks are drawn before it runs, so that ``remat`` (recompute in
-    the backward through ``torch.utils.checkpoint``) sees the same masks."""
+    the backward through ``torch.utils.checkpoint``, non-reentrant: the
+    recompute enters the block's tp collectives again, in the same order on
+    every rank) sees the same masks. ``rows``: (the global batch's rows,
+    this rank's slice) for ``AltBlock.draw_keeps``."""
     keeps = None
     if not deterministic:
         if layerdrop > 0 and not bool(torch.rand((), generator=generator,
                                                  device=x.device) < 1.0 - layerdrop):
             return x
-        keeps = block.draw_keeps(x, generator, bias)
+        keeps = block.draw_keeps(x, generator, bias, rows)
     if remat:
         # the block's tensors go in as arguments: the recompute runs in the
         # backward, after a ``functional_call`` that swapped them in is over

@@ -26,11 +26,21 @@ masks are drawn before it runs, in the order its forward uses them
 the shipped config never takes (cosine attention, alibi, ``layer_norm_first``)
 and the additive attention ``bias``.
 
-Tensor parallelism (``tp_group``, forward only): ``AltAttention`` holds its
-rank's heads and ``Mlp`` its share of the hidden width
+Tensor parallelism (``tp_group``): ``AltAttention`` holds its rank's heads
+and ``Mlp`` its share of the hidden width
 (``parallel/mesh.py::shard_encoder_state`` gives the weights); the partial
 outputs of the attention projection and of fc2 are summed over the group
 with ``dist.all_reduce``, and their biases are added once, after the sum.
+A differentiated forward (d2v pretraining) takes Megatron's two operators:
+the replicated input of qkv and of fc1 is the identity forward and sums its
+gradient over the group backward (``to_tp``), and the sum after proj and fc2
+passes its gradient through unchanged (``row_parallel``). Every leaf
+upstream of a block then gets its whole gradient on every rank, a sharded
+leaf its shard's, and the replicated biases of proj and fc2 theirs once.
+Under no gradient the sums are the plain collective, as in extraction. The
+dropout keeps of a training forward are drawn at the full width of the
+global batch on every rank, which takes its rows, its heads and its hidden
+share (``AltBlock.draw_keeps``).
 """
 
 from __future__ import annotations
@@ -163,18 +173,62 @@ def tp_size(group) -> int:
     return 1 if group is None else dist.get_world_size(group)
 
 
+def tp_rank(group) -> int:
+    return 0 if group is None else dist.get_rank(group)
+
+
+class _CopyToTP(torch.autograd.Function):
+    """Identity forward; backward, the gradient summed over the group (each
+    rank's partial products reach only its shard's share of it)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        grad = grad.contiguous().clone()
+        dist.all_reduce(grad, group=ctx.group)
+        return grad, None
+
+
+class _SumOverTP(torch.autograd.Function):
+    """The partial sums reduced over the group forward; the (replicated)
+    gradient passed to every rank's partial product backward."""
+
+    @staticmethod
+    def forward(ctx, y, group):
+        ctx.mark_dirty(y)
+        dist.all_reduce(y, group=group)
+        return y
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None
+
+
+def to_tp(x: torch.Tensor, group) -> torch.Tensor:
+    """The replicated input of a column-parallel layer (qkv, fc1): itself,
+    with its gradient summed over ``group`` in a differentiated forward."""
+    if group is None or not (torch.is_grad_enabled() and x.requires_grad):
+        return x
+    return _CopyToTP.apply(x, group)
+
+
 def row_parallel(dense: Dense, x: torch.Tensor, group) -> torch.Tensor:
     """``dense`` over a rank's slice of its input features, summed over the
     tensor-parallel ``group``; the bias is added once, after the sum. With
-    no group this is ``dense(x)``. Forward only: the sum is a plain
-    collective, with no gradient."""
+    no group this is ``dense(x)``. Under no gradient the sum is the plain
+    collective; else an autograd op whose backward passes the gradient
+    through."""
     if group is None:
         return dense(x)
     y = F.linear(x.to(dense.dtype), dense.weight.to(dense.dtype))
-    if y.requires_grad:
-        raise RuntimeError("the tensor-parallel encoder is forward-only (a frozen "
-                           "encoder under torch.no_grad())")
-    dist.all_reduce(y, group=group)
+    if torch.is_grad_enabled() and y.requires_grad:
+        y = _SumOverTP.apply(y, group)
+    else:
+        dist.all_reduce(y, group=group)
     return y if dense.bias is None else y + dense.bias.to(dense.dtype)
 
 
@@ -314,7 +368,8 @@ class Mlp(nn.Module):
 
     def forward(self, x: torch.Tensor,
                 keeps: Optional[Iterator[torch.Tensor]] = None) -> torch.Tensor:
-        x = _drop(_gelu(self.fc1(x), self.gelu_approximate), self.drop, keeps)
+        x = _drop(_gelu(self.fc1(to_tp(x, self.tp_group)), self.gelu_approximate), self.drop,
+                  keeps)
         return _drop(row_parallel(self.fc2, x, self.tp_group), self.drop, keeps)
 
 
@@ -373,7 +428,7 @@ class AltAttention(nn.Module):
         C = H * head_dim
         scale = head_dim**-0.5
 
-        qkv = self.qkv(x).reshape(B, N, 3, H, head_dim)
+        qkv = self.qkv(to_tp(x, self.tp_group)).reshape(B, N, 3, H, head_dim)
         q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]  # (B, N, H, Dh)
 
         if self.flash_ok(N, bias, keeps is None):
@@ -445,19 +500,35 @@ class AltBlock(nn.Module):
         self.hidden_dim = self.mlp.hidden_dim
 
     def draw_keeps(self, x: torch.Tensor, generator: Optional[torch.Generator],
-                   bias: Optional[torch.Tensor] = None) -> List[torch.Tensor]:
+                   bias: Optional[torch.Tensor] = None,
+                   rows: Optional[Tuple[int, slice]] = None) -> List[torch.Tensor]:
         """The block's dropout keep masks for input ``x``, in the order its
         forward uses them (attention probabilities, attention output, the
-        MLP's two sites, post-MLP); a site with rate 0 or 1 takes none."""
+        MLP's two sites, post-MLP); a site with rate 0 or 1 takes none.
+
+        Each mask is drawn at the full width (every head, the whole hidden
+        width) and, with ``rows`` = (the global batch's rows, this rank's
+        slice of them), for the global batch, as one process draws it; the
+        block keeps its rows, and under tp its heads of the attention
+        probabilities and its hidden share (the order of
+        ``parallel/mesh.py::shard_encoder_state``). The C-wide sites are the
+        same on every tp rank."""
         B, N, C = x.shape
+        total, mine = rows if rows is not None else (B, slice(None))
         attn = self.attn
+        tp, r = tp_size(attn.tp_group), tp_rank(attn.tp_group)
+        heads = slice(r * attn.num_heads, (r + 1) * attn.num_heads)
+        hidden = slice(r * self.hidden_dim, (r + 1) * self.hidden_dim)
+        whole = slice(None)
         sites = []
         if not attn.flash_ok(N, bias, False):
-            sites.append(((B, attn.num_heads, N, N), attn.attn_drop))
-        sites += [((B, N, C), attn.proj_drop), ((B, N, self.hidden_dim), self.mlp.drop),
-                  ((B, N, C), self.mlp.drop), ((B, N, C), self.post_mlp_drop)]
-        return [draw_keep(shape, rate, generator, x.device)
-                for shape, rate in sites if 0 < rate < 1]
+            sites.append(((total, attn.num_heads * tp, N, N), attn.attn_drop, (mine, heads)))
+        sites += [((total, N, C), attn.proj_drop, (mine,)),
+                  ((total, N, self.hidden_dim * tp), self.mlp.drop, (mine, whole, hidden)),
+                  ((total, N, C), self.mlp.drop, (mine,)),
+                  ((total, N, C), self.post_mlp_drop, (mine,))]
+        return [draw_keep(shape, rate, generator, x.device)[cut]
+                for shape, rate, cut in sites if 0 < rate < 1]
 
     def forward(self, x: torch.Tensor,
                 padding_mask: Optional[torch.Tensor] = None,

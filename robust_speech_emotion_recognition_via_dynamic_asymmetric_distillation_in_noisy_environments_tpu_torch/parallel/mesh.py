@@ -7,12 +7,14 @@ each process is one cell of the grid and holds its own shard:
   global batch's random numbers and takes its rows, and the DAD losses see
   the whole batch (``parallel/sharded.py``), so an N-process run computes
   the single-process step at N times the batch.
-- ``tp``: the frozen encoder's transformer blocks are split over the tp
-  axis (``shard_encoder_state``): each process holds its ``H / tp`` heads of
+- ``tp``: the encoder's transformer blocks are split over the tp axis
+  (``shard_encoder_state``): each process holds its ``H / tp`` heads of
   attention and its share of the MLP hidden width, and the partial outputs
   of the attention projection and of fc2 are summed over the tp group
-  (``models/layers.py``). tp is the inner (fastest) axis, as JAX's
-  ``reshape(n // tp, tp)``: rank r sits at (r // tp, r % tp).
+  (``models/layers.py``, with a backward for d2v pretraining, whose
+  sharded state ``gather_encoder_state`` reassembles). tp is the inner
+  (fastest) axis, as JAX's ``reshape(n // tp, tp)``: rank r sits at
+  (r // tp, r % tp).
 
 ``make_mesh`` reads ``torchrun``'s environment (``WORLD_SIZE``, ``RANK``,
 ``LOCAL_RANK``, ``MASTER_ADDR``, ``MASTER_PORT``); the backend is NCCL for
@@ -227,7 +229,11 @@ def encoder_leaf_split(name: str) -> Optional[int]:
     - MLP fc2 weight (C, hidden): input features; bias replicated;
     - the cosine-attention per-head ``logit_scale`` (H, 1, 1): heads;
     - everything else (conv stacks, norms, the input projection):
-      replicated."""
+      replicated.
+
+    The names are the encoder's state-dict keys, so the rule holds for any
+    tree keyed by them: the d2v student (whose decoder's names match none
+    of these), its EMA blocks and both AdamW moments."""
     if name.endswith("attn.qkv.weight") or name.endswith("attn.qkv.bias"):
         return 0
     if name.endswith("attn.proj.weight") or name.endswith("mlp.fc2.weight"):
@@ -269,4 +275,29 @@ def shard_encoder_state(state: Mapping[str, torch.Tensor], mesh: Mesh,
             out[k] = torch.cat([_shard(t, 0, r, mesh.tp) for t in (q, kk, vv)], dim=0)
         else:
             out[k] = _shard(v, dim, r, mesh.tp)
+    return out
+
+
+def gather_encoder_state(shards: Mapping[str, torch.Tensor],
+                         mesh: Mesh) -> Dict[str, torch.Tensor]:
+    """The inverse of ``shard_encoder_state``: this rank's shard of a state
+    dict (or of any tree keyed as one) -> the full dict, on every rank of
+    the tp group (an all-gather over tp for each split entry; qkv
+    reassembled by head within each of q, k and v). Replicated entries
+    pass through."""
+    if mesh.tp == 1:
+        return dict(shards)
+    out = {}
+    for (k, v), dim in zip(shards.items(), encoder_param_sharding(mesh, shards).values()):
+        if dim is None:
+            out[k] = v
+            continue
+        parts = [torch.empty_like(v) for _ in range(mesh.tp)]
+        dist.all_gather(parts, v.contiguous(), group=mesh.tp_group)
+        if k.endswith("attn.qkv.weight") or k.endswith("attn.qkv.bias"):
+            thirds = [p.chunk(3, dim=0) for p in parts]
+            out[k] = torch.cat([torch.cat([t[i] for t in thirds], dim=0) for i in range(3)],
+                               dim=0)
+        else:
+            out[k] = torch.cat(parts, dim=dim)
     return out

@@ -148,11 +148,12 @@ def gather_outputs(mesh: Mesh, out: HeadOutputs) -> HeadOutputs:
     return both._replace(teacher_probs=both.teacher_probs.detach())
 
 
-def reduce_grads(mesh: Mesh, grads):
+def reduce_grads(mesh: Mesh, grads, group=None):
     """The sum of every dp rank's gradients (one all-reduce over a flat
-    buffer): each rank's rows' part of the global batch's gradient."""
+    buffer): each rank's rows' part of the global batch's gradient. Over
+    ``group`` instead of dp where given."""
     flat = torch.cat([g.reshape(-1) for g in grads.values()])
-    dist.all_reduce(flat, group=mesh.dp_group)
+    dist.all_reduce(flat, group=mesh.dp_group if group is None else group)
     out, i = {}, 0
     for k, g in grads.items():
         out[k] = flat[i:i + g.numel()].view_as(g)

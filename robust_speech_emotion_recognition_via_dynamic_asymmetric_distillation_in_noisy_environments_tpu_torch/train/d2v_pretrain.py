@@ -5,9 +5,13 @@ Dataset: manifest-driven raw wavs with fixed-size random crops, several
 manifests mixed by per-corpus sampling weights; short clips are padded and
 masked. Epoch composition, shuffles and crop draws are numpy streams keyed
 as the JAX package keys them, so the batches are bit-equal to its own. The
-loop runs the d2v step (``models/d2v_pretrain.py``) on one device, reads
-each step's collapse telemetry while the next step runs, validates every
+loop runs the d2v step (``models/d2v_pretrain.py``) on one device, or over
+a (dp, tp) process grid (``parallel/d2v_sharded.py``), reads each step's
+collapse telemetry while the next step runs, validates every
 ``valid_every`` steps, checkpoints the whole state and exports the encoder.
+Over a grid every rank runs the loop on the same global batches and reads
+the same global metrics, so the guards and the best state agree; rank 0
+alone writes, the state gathered to the single-process layout.
 
 Files in ``save_dir`` (the JAX package's names, ``.pt`` where it writes
 flax ``.msgpack``): ``d2v_last_state.pt`` (+ ``.meta.json``),
@@ -29,7 +33,7 @@ from ..audio.wavio import read_mono
 from ..configs import D2vPretrainConfig, EncoderConfig
 from ..data.manifests import read_manifest
 from ..data.prefetch import prefetch
-from ..utils import MESH_NOT_PORTED, dump_json, get_logger, resolve_device
+from ..utils import dump_json, get_logger, resolve_device
 from .checkpointing import restore_train_state, save_train_state
 
 logger = get_logger(__name__)
@@ -271,16 +275,22 @@ def run_d2v_pretrain(
     batches); "auto" engages under ``resident_max_bytes``; per-step only
     (True with ``scan_chunk`` > 1 raises, "auto" streams).
 
+    ``mesh`` (``parallel.make_mesh``): the step over the (dp, tp) grid on
+    the rank's device (``device`` is not used); ``transfer_dtype``,
+    ``scan_chunk`` > 1 and the resident corpus are ignored with a warning,
+    ``pcfg.batch_size`` must divide by dp, and rank 0 alone writes.
+
     Test hooks: ``init_state`` (a ``D2vTrainState`` to start from),
     ``step_draws(step)`` / ``valid_draws(batch)`` (``D2vDraws`` for the
     update from ``step`` / the validation batch, None: the generator)."""
     from ..models import d2v_pretrain as d2v_models
     from ..models.d2v_pretrain import encoder_params, init_d2v_state, init_ema_blocks
 
-    if mesh is not None:
-        raise NotImplementedError(MESH_NOT_PORTED)
-    device = resolve_device(device)
-    os.makedirs(save_dir, exist_ok=True)
+    gather, written = _grid_sync(mesh)
+    device = mesh.device if mesh is not None else resolve_device(device)
+    writer = mesh is None or mesh.is_writer
+    if writer:
+        os.makedirs(save_dir, exist_ok=True)
     model, tx, state = init_d2v_state(
         cfg, pcfg, torch.Generator(device).manual_seed(pcfg.random_seed), device)
     if init_state is not None:
@@ -293,10 +303,29 @@ def run_d2v_pretrain(
         state = state._replace(params=params, ema_blocks=init_ema_blocks(params, cfg, pcfg))
         logger.info("initialized encoder from %s", init_checkpoint)
 
+    if mesh is not None:
+        from ..parallel import d2v_sharded
+
+        if transfer_dtype:
+            logger.warning("transfer_dtype=%s ignored: the mesh-sharded step places "
+                           "batches itself", transfer_dtype)
+            transfer_dtype = None
+        if scan_chunk > 1:
+            logger.warning("scan_chunk=%d ignored under a mesh (per-batch dispatch)",
+                           scan_chunk)
+        if resident not in (False, "off", None):
+            logger.warning("resident corpus ignored under a mesh (the dp-sharded step "
+                           "places batches itself)")
+            resident = "off"
+        if pcfg.batch_size % mesh.dp:
+            raise ValueError(f"batch_size={pcfg.batch_size} must divide by dp={mesh.dp}")
+        scan_chunk = 1
+        state = d2v_sharded.place_d2v_state(state, mesh)
+        step_fn = d2v_sharded.make_sharded_d2v_step(model, tx, mesh)
     chunk = max(1, scan_chunk)
     if chunk > 1:
         chunk_runner = d2v_models.make_d2v_chunk_runner(model, tx)
-    else:
+    elif mesh is None:
         # through the module, so that tests and probes can wrap the factory
         step_fn = d2v_models.make_d2v_train_step(model, tx)
     ds = _dataset(manifest_dirs, pcfg, binarized, weights=weights)
@@ -339,7 +368,11 @@ def run_d2v_pretrain(
     if resume and os.path.exists(ckpt_path):
         # params, optimizer and EMA from the state; generator, position and
         # history from the metadata
-        state, meta = restore_train_state(ckpt_path, state)
+        if mesh is None:
+            state, meta = restore_train_state(ckpt_path, state)
+        else:  # the file holds the single-process layout: restored whole, re-placed
+            state, meta = restore_train_state(ckpt_path, gather(state))
+            state = d2v_sharded.place_d2v_state(state, mesh)
         meta = meta or {}
         if "rng" in meta:
             rng.set_state(torch.tensor(meta["rng"], dtype=torch.uint8))
@@ -352,8 +385,16 @@ def run_d2v_pretrain(
     best_valid = float("inf") if meta.get("best_valid") is None else float(meta["best_valid"])
     best_path = os.path.join(save_dir, "d2v_best_state.pt")
 
+    def save_state(path: str, metadata: Dict) -> None:
+        """The single-process state to ``path`` (gathered over tp on every
+        rank; written by rank 0, whole before any rank goes on to read it)."""
+        full = gather(state)
+        if writer:
+            save_train_state(path, full, metadata=metadata)
+        written()
+
     def save_ckpt(step: int) -> None:
-        save_train_state(ckpt_path, state, metadata={
+        save_state(ckpt_path, {
             "step": step, "epoch": epoch, "batch_in_epoch": batch_in_epoch,
             "rng": rng.get_state().tolist(), "history": history,
             "best_valid": best_valid if np.isfinite(best_valid) else None,
@@ -366,7 +407,8 @@ def run_d2v_pretrain(
             raise ValueError(
                 f"valid split has {len(valid_ds)} usable clips < batch_size={pcfg.batch_size}: "
                 "no validation batches (drop_last) — shrink batch_size or grow the split")
-        eval_fn = d2v_models.make_d2v_eval_step(model)
+        eval_fn = (d2v_models.make_d2v_eval_step(model) if mesh is None
+                   else d2v_sharded.make_sharded_d2v_eval_step(model, mesh))
 
     def run_validation(at_step: int) -> None:
         nonlocal best_valid
@@ -374,8 +416,9 @@ def run_d2v_pretrain(
         vgen = torch.Generator(device).manual_seed(pcfg.random_seed + 2)
         losses = []
         for i, (wav, pad) in enumerate(valid_ds.batches(0, pcfg.batch_size)):
-            m = eval_fn(state.params, state.ema_blocks, torch.from_numpy(wav).to(device),
-                        torch.from_numpy(pad).to(device), vgen,
+            if mesh is None:  # the sharded step moves its rows itself
+                wav, pad = torch.from_numpy(wav).to(device), torch.from_numpy(pad).to(device)
+            m = eval_fn(state.params, state.ema_blocks, wav, pad, vgen,
                         None if valid_draws is None else valid_draws(i))
             losses.append(float(m["loss"]))
         vl = float(np.mean(losses))
@@ -385,7 +428,7 @@ def run_d2v_pretrain(
                     " (best)" if improved else "")
         if improved:
             best_valid = vl
-            save_train_state(best_path, state, metadata={"step": at_step, "valid_loss": vl})
+            save_state(best_path, {"step": at_step, "valid_loss": vl})
 
     step = int(state.step)
     done = step >= pcfg.max_steps
@@ -442,7 +485,8 @@ def run_d2v_pretrain(
             src = ds.batches(epoch, pcfg.batch_size, skip=batch_in_epoch)
             if chunk > 1:
                 src = _chunked(src, chunk, pcfg.max_steps - step)
-            batch_iter = prefetch(src, depth=2, to_device=True,
+            # with a mesh the sharded step moves its rows itself
+            batch_iter = prefetch(src, depth=2, to_device=mesh is None,
                                   transfer_fp32_as=transfer_dtype, device=device)
         for wavs, pads in batch_iter:
             epoch_had_batches = True
@@ -502,15 +546,32 @@ def run_d2v_pretrain(
         run_validation(int(state.step))
     save_ckpt(int(state.step))
     enc_path = os.path.join(save_dir, "encoder_params.pt")
-    _save_encoder(encoder_params(state.params), enc_path)
-    if valid_ds is not None and os.path.exists(best_path):
-        best_state, _ = restore_train_state(best_path, state)
-        _save_encoder(encoder_params(best_state.params),
-                      os.path.join(save_dir, "encoder_params_best.pt"))
-        logger.info("best valid loss %.4f -> encoder_params_best.pt", best_valid)
-    dump_json(history, os.path.join(save_dir, "d2v_training_history.json"))
-    logger.info("saved %s (+ encoder %s)", ckpt_path, enc_path)
+    full = gather(state)
+    if writer:
+        _save_encoder(encoder_params(full.params), enc_path)
+        if valid_ds is not None and os.path.exists(best_path):
+            best_state, _ = restore_train_state(best_path, full)
+            _save_encoder(encoder_params(best_state.params),
+                          os.path.join(save_dir, "encoder_params_best.pt"))
+            logger.info("best valid loss %.4f -> encoder_params_best.pt", best_valid)
+        dump_json(history, os.path.join(save_dir, "d2v_training_history.json"))
+        logger.info("saved %s (+ encoder %s)", ckpt_path, enc_path)
+    written()
     return last
+
+
+def _grid_sync(mesh):
+    """(gather, written): the state in the single-process layout (gathered
+    over tp on a mesh), and the wait for rank 0's files (a barrier on a
+    mesh: a rank that resumed or returned before rank 0 had written would
+    read a partial checkpoint, or none)."""
+    if mesh is None:
+        return (lambda state: state), (lambda: None)
+    import torch.distributed as dist
+
+    from ..parallel.d2v_sharded import gather_d2v_state
+
+    return (lambda state: gather_d2v_state(state, mesh)), dist.barrier
 
 
 def to_device(x, device):

@@ -439,8 +439,9 @@ def test_cli_writes_the_jax_file_tree(ref, tmp_path, capsys):
     assert cli.main(argv[:4] + [str(tmp_path / "bin")] + argv[5:19]
                     + ["--manifests", packed, "--binarized", "--device", "cpu"]) == 0
     capsys.readouterr()
+    # outside torchrun the grid's flags exit 2 with the launch to use
     assert cli.main(argv + ["--dp", "2"]) == 2
-    assert "item 9.5" in capsys.readouterr().err
+    assert "torchrun --standalone --nproc_per_node 2 -m " in capsys.readouterr().err
     flash = argv[:6] + [_tiny_json(tmp_path, use_flash_attention=True)] + argv[7:]
     with pytest.raises(SystemExit) as exc:  # the CLI's ValueError exit
         cli.main(flash)

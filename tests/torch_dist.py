@@ -296,3 +296,219 @@ def mesh_facts(mesh=None):
             backend=dist.get_backend(),
         )
     return facts
+
+
+# ---------------------------------------------------------------------------
+# d2v pretraining over the grid
+
+
+class D2vGradRecorder:
+    """Wraps a d2v optimizer: keeps the (dp-summed) gradients it is given,
+    then updates as the wrapped one does."""
+
+    def __init__(self, tx):
+        self.tx, self.grads = tx, None
+
+    def update(self, grads, state, params, norm=None):
+        self.grads = {k: g.detach().clone() for k, g in grads.items()}
+        return self.tx.update(grads, state, params, norm)
+
+
+def numpy_d2v_state(state) -> dict:
+    """A (single-process layout) d2v state's params, EMA blocks, both
+    moments and counts as numpy."""
+    out = {f"params.{k}": to_numpy(v.float()) for k, v in state.params.items()}
+    out.update({f"ema.{k}": to_numpy(v.float()) for k, v in state.ema_blocks.items()})
+    out.update({f"mu.{k}": to_numpy(v.float()) for k, v in state.opt_state.mu.items()})
+    out.update({f"nu.{k}": to_numpy(v.float()) for k, v in state.opt_state.nu.items()})
+    out["step"] = int(state.step)
+    out["count"] = int(state.opt_state.count)
+    return out
+
+
+def d2v_steps(cfg, pcfg, state, wav, pad, steps: int, seed: int = 0, draws=None,
+              mesh=None, record_grads: bool = False):
+    """``steps`` d2v updates from ``state`` (single-process layout) on the
+    global batch (``wav``, ``pad``: numpy), over ``mesh`` (else the plain
+    step), drawing from a generator seeded ``seed`` or fed ``draws`` (one
+    ``D2vDraws`` a step). Returns (metrics per step, the final state in the
+    single-process layout as numpy, the first step's gradients in that
+    layout or None)."""
+    from robust_speech_emotion_recognition_via_dynamic_asymmetric_distillation_in_noisy_environments_tpu_torch.models import (
+        d2v_pretrain as td2v,
+    )
+    from robust_speech_emotion_recognition_via_dynamic_asymmetric_distillation_in_noisy_environments_tpu_torch.parallel import (
+        gather_d2v_state,
+        gather_encoder_state,
+        make_sharded_d2v_step,
+        place_d2v_state,
+    )
+
+    model, tx, _ = td2v.init_d2v_state(cfg, pcfg)
+    rec = D2vGradRecorder(tx)
+    tx = rec if record_grads else tx
+    gen = torch.Generator().manual_seed(seed)
+    if mesh is None:
+        step = td2v.make_d2v_train_step(model, tx)
+        wav, pad = torch.from_numpy(wav), torch.from_numpy(pad)
+    else:
+        step = make_sharded_d2v_step(model, tx, mesh)
+        state = place_d2v_state(state, mesh)
+    metrics, grads = [], None
+    for i in range(steps):
+        state, m = step(state, wav, pad, gen, None if draws is None else draws[i])
+        metrics.append({k: float(v) for k, v in m.items()})
+        if record_grads and i == 0:
+            g = rec.grads if mesh is None else gather_encoder_state(rec.grads, mesh)
+            grads = {k: to_numpy(v) for k, v in g.items()}
+    if mesh is not None:
+        state = gather_d2v_state(state, mesh)
+    return metrics, numpy_d2v_state(state), grads
+
+
+def d2v_place_and_gather(cfg, pcfg, mesh=None):
+    """A fresh d2v state placed on the grid and gathered back: the rank's
+    shard shapes, and whether the round trip is bit-equal."""
+    from robust_speech_emotion_recognition_via_dynamic_asymmetric_distillation_in_noisy_environments_tpu_torch.models import (
+        d2v_pretrain as td2v,
+    )
+    from robust_speech_emotion_recognition_via_dynamic_asymmetric_distillation_in_noisy_environments_tpu_torch.parallel import (
+        gather_d2v_state,
+        place_d2v_state,
+    )
+
+    _m, _tx, state = td2v.init_d2v_state(cfg, pcfg, torch.Generator().manual_seed(1))
+    state = state._replace(opt_state=state.opt_state._replace(
+        mu={k: torch.randn(v.shape, generator=torch.Generator().manual_seed(2)).to(v.dtype)
+            for k, v in state.opt_state.mu.items()}))
+    placed = place_d2v_state(state, mesh)
+    back = gather_d2v_state(placed, mesh)
+    same = all(torch.equal(a, b) for x, y in ((state.params, back.params),
+                                               (state.ema_blocks, back.ema_blocks),
+                                               (state.opt_state.mu, back.opt_state.mu),
+                                               (state.opt_state.nu, back.opt_state.nu))
+               for a, b in zip(x.values(), y.values()))
+    return dict(shapes={k: tuple(v.shape) for k, v in placed.params.items()},
+                mu_shapes={k: tuple(v.shape) for k, v in placed.opt_state.mu.items()},
+                ema_shapes={k: tuple(v.shape) for k, v in placed.ema_blocks.items()},
+                round_trip_equal=same)
+
+
+def encoder_training_grads(cfg, state, wav, pad, weight, seed: int, mesh=None):
+    """The encoder's training forward (dropout and layerdrop from a
+    generator seeded ``seed``) and the gradient of sum(features * weight)
+    for every entry of ``state``, over the tp axis of ``mesh`` (gathered to
+    the full layout). Returns (features, grads) as numpy."""
+    from torch.func import functional_call
+
+    from robust_speech_emotion_recognition_via_dynamic_asymmetric_distillation_in_noisy_environments_tpu_torch.models.emotion2vec import (
+        Emotion2vecEncoder,
+    )
+    from robust_speech_emotion_recognition_via_dynamic_asymmetric_distillation_in_noisy_environments_tpu_torch.parallel import (
+        gather_encoder_state,
+        shard_encoder_state,
+    )
+
+    group = mesh.tp_group if mesh is not None and mesh.tp > 1 else None
+    if group is not None:
+        state = shard_encoder_state(state, mesh)
+    with torch.device("meta"):
+        enc = Emotion2vecEncoder(cfg, tp_group=group)
+    leaves = {k: v.detach().clone().requires_grad_(True) for k, v in state.items()}
+    gen = torch.Generator().manual_seed(seed)
+    x, _ = functional_call(enc, leaves, (torch.from_numpy(wav), torch.from_numpy(pad)),
+                           dict(deterministic=False, generator=gen))
+    (x * torch.from_numpy(weight)).sum().backward()
+    grads = {k: v.grad if v.grad is not None else torch.zeros_like(v) for k, v in leaves.items()}
+    if group is not None:
+        grads = gather_encoder_state(grads, mesh)
+    return to_numpy(x), {k: to_numpy(v) for k, v in grads.items()}
+
+
+def d2v_driver(cfg, pcfg, manifests: str, out: str, crash_after: int = 0, mesh=None,
+               **kw):
+    """``run_d2v_pretrain`` over ``mesh`` into ``out`` (``kw``: its
+    options); with ``crash_after``, the step raises after that many updates
+    (checkpoint every ``crash_after`` steps) and the run resumes. Rank 0's
+    file writes take a second longer, so that a rank reading a checkpoint
+    before it is whole shows. Returns the files this rank wrote and the
+    last metrics."""
+    import time
+
+    from robust_speech_emotion_recognition_via_dynamic_asymmetric_distillation_in_noisy_environments_tpu_torch.parallel import (
+        d2v_sharded,
+    )
+    from robust_speech_emotion_recognition_via_dynamic_asymmetric_distillation_in_noisy_environments_tpu_torch.train import (
+        d2v_pretrain as train_mod,
+    )
+    from robust_speech_emotion_recognition_via_dynamic_asymmetric_distillation_in_noisy_environments_tpu_torch.train.d2v_pretrain import (
+        run_d2v_pretrain,
+    )
+
+    save = train_mod.save_train_state
+
+    def slow_save(*a, **k):
+        time.sleep(1.0)
+        save(*a, **k)
+
+    def run(**more):
+        return run_d2v_pretrain(cfg, pcfg, [manifests], out, log_every=1, mesh=mesh,
+                                device="cpu", **kw, **more)
+
+    real = d2v_sharded.make_sharded_d2v_step
+
+    def crashing(*a):
+        step, calls = real(*a), {"n": 0}
+
+        def crash(*sa, **sk):
+            calls["n"] += 1
+            if calls["n"] > crash_after:
+                raise RuntimeError("simulated crash")
+            return step(*sa, **sk)
+
+        return crash
+
+    if mesh is not None and mesh.is_writer:
+        train_mod.save_train_state = slow_save
+    try:
+        if crash_after:
+            d2v_sharded.make_sharded_d2v_step = crashing
+            try:
+                run(checkpoint_every=crash_after)
+            except RuntimeError as e:
+                assert "simulated crash" in str(e)
+            d2v_sharded.make_sharded_d2v_step = real
+            last = run(checkpoint_every=0, resume=True)
+        else:
+            last = run(checkpoint_every=0)
+    finally:
+        d2v_sharded.make_sharded_d2v_step = real
+        train_mod.save_train_state = save
+    return dict(last=last, files=sorted(os.listdir(out)) if os.path.isdir(out) else [])
+
+
+def fresh_rendezvous() -> None:
+    """Leaves the process group and points the launch at a new port, agreed
+    over the old group: a new group on the old port can meet the old
+    group's store (torch keeps one store a port in a process) and read a
+    peer's stale address."""
+    import torch.distributed as dist
+
+    if dist.is_initialized():
+        port = [_free_port() if dist.get_rank() == 0 else None]
+        dist.broadcast_object_list(port, src=0)
+        os.environ["MASTER_PORT"] = str(port[0])
+    close_mesh()
+
+
+def d2v_cli_run(argv, cwd: str, mesh=None):
+    """``cli.main(argv)`` in ``cwd`` (the command joins the launch itself and
+    leaves the process group at its end): rc and the files it wrote."""
+    from robust_speech_emotion_recognition_via_dynamic_asymmetric_distillation_in_noisy_environments_tpu_torch import (
+        cli,
+    )
+
+    fresh_rendezvous()
+    os.chdir(cwd)
+    rc = cli.main(argv)
+    return dict(rc=rc, files=sorted(os.listdir(cwd)))
