@@ -4,8 +4,8 @@ serving path, the fused-norm probe, the conv front end through its kernel,
 the fused extract+train step, the feature-level trainer, the fused
 wav->train trainer, stage 1 (manifest, injection, extraction) with
 inference, the supervised pretrain, the experiment harness and the
-analyses, d2v self-supervised pretraining of the encoder, and the DAD and
-d2v paths over a (dp, tp) process grid.
+analyses, d2v self-supervised pretraining of the encoder, the DAD and d2v
+paths over a (dp, tp) process grid, and the accuracy-parity protocol.
 
     python3 chip_smoke.py
 
@@ -80,7 +80,8 @@ Phases (any failure raises and the script exits non-zero without a result):
    preset at full width). Checks rc 0, a finite history of the right
    lengths, that the best .pth reloads and re-validates to the logged best
    noisy WA, and noisy test WA above chance; then ``--scan-chunk 4`` must
-   give the same history, resident and with ``--resident off``, the pinned prefetch path must deliver batches
+   give the same history (resident), and with ``--resident off`` the same
+   first 2 chunks of epoch 2 as per-step, the pinned prefetch path must deliver batches
    unaltered under a slow consumer, and the same trainer on the card and
    on the CPU, from one pretrain head and fed the same draws through its
    hook for 3 steps, must agree. Prints ms/step (epoch 2), epoch and
@@ -136,7 +137,7 @@ Phases (any failure raises and the script exits non-zero without a result):
     stores and phase 9's corpus and checkpoint: ``cli pretrain --corpus
     iemocap --feat-path <clean> --folds 0 --max-epochs 5`` on the card (rc
     0, the .ckpt's shapes, at most 5 epochs, test accuracy well above
-    chance, the .ckpt re-evaluating to the logged accuracy), then 2 epochs
+    chance, the .ckpt re-evaluating to the logged accuracy), then 1 epoch
     of the same fold on the card and on the CPU from one init; ``cli
     ablation --from-wav ... --weights <pretrain .ckpt> --suite standard
     --experiments full_method,no_dacp --epochs 2 --warmup-epochs 1 --snr
@@ -214,7 +215,29 @@ Phases (any failure raises and the script exits non-zero without a result):
     process by phase 9's 2e-2 a clip. Prints the phase's seconds.
     ``--only d2v-parallel`` builds attention.cu, writes phase 9's corpus
     and runs phases 1, 2 and 14.
-15. prints the ``nvidia-smi`` line, a ``kernels`` JSON line (all four
+15. the accuracy-parity protocol (``tools/run_parity.py`` of the port; no
+    kernel on its path: 48-d features, no encoder): the iemocap protocol
+    (600 clips, dim 48, fold 0) at seed 0, cut to 10 DAD epochs (warmup
+    2; pretrain keeps the protocol's 30), through ``run_parity.main`` on
+    the card (the port and the reference replica, JAX comparison left out:
+    its reports are at 40 epochs). Then the port's side twice on the card
+    and once on the CPU, all three from one pretrain init and one set of
+    DAD draws (weak and strong views, both dropout keeps) made on the host
+    from seeded generators (the trainers' ``init_params`` and
+    ``step_draws`` hooks): left to themselves the card draws from CUDA's
+    Philox stream and the CPU from MT19937, two different trajectories.
+    Every side saves a best checkpoint and scores noisy UA above chance
+    (25 %); ``tools/parity_check.py`` (stdlib only) reads the card's and
+    the CPU's results dirs. The two card runs give the drift: at drift 0
+    they must predict every pretrain and noisy test clip alike, and so
+    must the card and the CPU, but for clips at a top-2 logit margin
+    under phase 10's 1e-3 in either run; at a drift above 0, pretrain
+    and noisy UA within 4x it. Prints the rows, the report's keys, the test clips predicted
+    apart with their margins, where the pretrain and DAD histories part,
+    and the seconds of each run. ``--only parity`` runs phases 1, 2
+    (nothing to build) and 15 for all three corpora (iemocap 600, casia
+    800, emodb 1000 clips).
+16. prints the ``nvidia-smi`` line, a ``kernels`` JSON line (all four
     kernels; the conv entry sums its seven layers' numbers), then the
     result line ``{"ok": true, "device": {...}}`` last.
 """
@@ -243,6 +266,7 @@ import urllib.request
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.func import functional_call
 
 from robust_speech_emotion_recognition_via_dynamic_asymmetric_distillation_in_noisy_environments_tpu_torch import (
     cli,
@@ -285,6 +309,7 @@ from robust_speech_emotion_recognition_via_dynamic_asymmetric_distillation_in_no
 )
 from robust_speech_emotion_recognition_via_dynamic_asymmetric_distillation_in_noisy_environments_tpu_torch.eval import (
     accuracy,
+    balanced_accuracy,
     inference,
 )
 from robust_speech_emotion_recognition_via_dynamic_asymmetric_distillation_in_noisy_environments_tpu_torch.eval.serving import (
@@ -339,6 +364,9 @@ from robust_speech_emotion_recognition_via_dynamic_asymmetric_distillation_in_no
     cuda_build,
     fused_norm,
     norm_probe,
+)
+from robust_speech_emotion_recognition_via_dynamic_asymmetric_distillation_in_noisy_environments_tpu_torch.tools import (
+    run_parity,
 )
 from robust_speech_emotion_recognition_via_dynamic_asymmetric_distillation_in_noisy_environments_tpu_torch.utils import (
     timing,
@@ -1369,6 +1397,8 @@ def run_training_slice(enc_sd, clean: FusedBatch, noisy: FusedBatch) -> dict:
 FEATURE_CLASSES = {"ang": 1103, "hap": 1636, "neu": 1708, "sad": 1084}
 FEATURE_DIM, FEATURE_FRAMES, FEATURE_NOISE_STD = 768, (50, 1000), 0.5
 FEATURE_EPOCHS, FEATURE_CHUNK, CARD_CPU_STEPS = 3, 4, 3
+# the streamed chunk runner against per-step over the first chunks of epoch 2
+FEATURE_STREAMED_CHUNKS = 2
 # card vs CPU over the trainer's first steps and --scan-chunk vs per-step:
 # tests/test_torch_train_step.py's METRIC_TOL / STATE_TOL
 TRAINER_METRIC_TOL = dict(atol=2e-5, rtol=1e-4)
@@ -1703,32 +1733,61 @@ def state_max_diffs(a, b) -> dict:
     return out
 
 
-def resident_against_streamed(make, epoch: int) -> dict:
+def paths_agree(make, variants: tuple, epoch: int, steps: int) -> tuple:
+    """``make(arg)`` builds a trainer for each of two ``variants`` ((name,
+    arg) pairs); both take the same first ``steps`` steps of ``epoch`` (one
+    seed, so the same draws): metrics within TRAINER_METRIC_TOL and the
+    state within TRAINER_STATE_TOL. Returns each one's ms/step, the max
+    differences and the first one's metrics, and the first trainer."""
+    out, runs = {}, []
+    for name, arg in variants:
+        t = make(arg)
+        avg, out[f"{name}_ms_per_step"] = first_steps(t, epoch, steps)
+        runs.append((t, avg))
+    (first, a), (second, b) = runs
+    out["metrics_max_diff"] = max(abs(a[k] - b[k]) for k in b)
+    bad = [k for k in b if not close(a[k], b[k], TRAINER_METRIC_TOL)]
+    out["state_max_diff"] = state_max_diffs(first.state, second.state)
+    for name, (x, y) in (("student", (first.state.ssrl.student, second.state.ssrl.student)),
+                         ("teacher", (first.state.ssrl.teacher, second.state.ssrl.teacher))):
+        bad += [f"{name} {k}" for k in y if not close(x[k].cpu(), y[k].cpu(), TRAINER_STATE_TOL)]
+    if bad:
+        raise AssertionError(f"{variants[0][0]} vs {variants[1][0]}: {bad}: {out}")
+    out["metrics"] = a
+    del second
+    return out, first
+
+
+def resident_against_streamed(make, epoch: int) -> tuple:
     """``make(resident)`` builds a trainer; a resident and a streamed one
-    take the same first steps of ``epoch`` (one seed, so the same draws):
-    metrics within TRAINER_METRIC_TOL and the state within
-    TRAINER_STATE_TOL (0 expected: the batches are bit-equal). Returns the
-    max differences, each path's ms/step and the resident trainer."""
-    out, runs = {}, {}
-    for resident in (True, False):
+    take the same first COMPARE_STEPS steps of ``epoch`` (``paths_agree``;
+    0 expected: the batches are bit-equal). Returns the max differences,
+    each path's ms/step and the resident trainer."""
+    def checked(resident: bool):
         t = make(resident)
         if (t._resident is not None) != resident:
             raise AssertionError(f"resident={resident} trainer has _resident {t._resident}")
-        avg, ms = first_steps(t, epoch, COMPARE_STEPS)
-        runs[resident] = (t, avg)
-        out["resident_ms_per_step" if resident else "streamed_ms_per_step"] = ms
-    (res, a), (stream, b) = runs[True], runs[False]
-    out["metrics_max_diff"] = max(abs(a[k] - b[k]) for k in b)
-    bad = [k for k in b if not close(a[k], b[k], TRAINER_METRIC_TOL)]
-    out["state_max_diff"] = state_max_diffs(res.state, stream.state)
-    for name, (x, y) in (("student", (res.state.ssrl.student, stream.state.ssrl.student)),
-                         ("teacher", (res.state.ssrl.teacher, stream.state.ssrl.teacher))):
-        bad += [f"{name} {k}" for k in y if not close(x[k].cpu(), y[k].cpu(), TRAINER_STATE_TOL)]
-    if bad:
-        raise AssertionError(f"resident vs streamed: {bad}: {out}")
-    out["metrics"] = a
-    del stream
-    return out, res
+        return t
+
+    return paths_agree(checked, (("resident", True), ("streamed", False)), epoch, COMPARE_STEPS)
+
+
+def streamed_chunks_against_per_step(make, epoch: int) -> dict:
+    """``make(scan_chunk)`` builds a streamed trainer; one stepping through
+    ``epoch`` in chunks of FEATURE_CHUNK batches (the streamed chunk
+    runner, its chunks stacked on the host) and one stepping batch by batch
+    take the same first FEATURE_STREAMED_CHUNKS chunks (``paths_agree``).
+    Returns the max differences and each path's ms/step."""
+    def checked(chunk: int):
+        t = make(chunk)
+        if t._resident is not None or (t._epoch_runner is None) != (chunk == 0):
+            raise AssertionError(f"scan_chunk={chunk}: resident {t._resident is not None}, "
+                                 f"chunk runner {t._epoch_runner is not None}")
+        return t
+
+    out, _chunked = paths_agree(checked, (("chunked", FEATURE_CHUNK), ("per_step", 0)), epoch,
+                                FEATURE_STREAMED_CHUNKS * FEATURE_CHUNK)
+    return out
 
 
 def run_feature_trainer() -> dict:
@@ -1809,27 +1868,29 @@ def run_feature_trainer() -> dict:
         print(f"train_features: resident vs --resident off, {COMPARE_STEPS} steps of epoch 2 "
               f"from one seed: " + json.dumps(report), flush=True)
 
-        # --scan-chunk on both paths: the resident chunk runner, and the
-        # streamed chunks (stacked on the host by the prefetch worker)
-        for resident in ("auto", "off"):
-            with TrainerProbe() as probe_chunk:
-                rc = cli.main(argv + ["--name", f"chunk_{resident}", "--resident", resident,
-                                      "--scan-chunk", str(FEATURE_CHUNK)])
-            if rc != 0:
-                raise AssertionError(f"cli dad --scan-chunk --resident {resident} returned {rc}")
-            chunked = probe_chunk.trainers[-1]
-            if (chunked._resident is None) != (resident == "off"):
-                raise AssertionError(f"--scan-chunk --resident {resident}: _resident is "
-                                     f"{chunked._resident}")
-            if resident == "off" and chunked._epoch_runner is None:
-                raise AssertionError("--scan-chunk --resident off: the streamed chunk runner "
-                                     "is not engaged")
-            diffs = compare_histories(read_history(chunked), history)
-            chunk_s = [e["seconds"] for e in probe_chunk.epochs]
-            print(f"train_features: --scan-chunk {FEATURE_CHUNK} --resident {resident} history "
-                  f"equals per-step within METRIC_TOL, max |diff| by series "
-                  f"{json.dumps(diffs)}; epoch s {chunk_s}", flush=True)
-            del chunked, probe_chunk
+        # --scan-chunk on both paths: the resident chunk runner over the
+        # whole run, and the streamed chunks (stacked on the host by the
+        # prefetch worker) over the first chunks of epoch 2
+        with TrainerProbe() as probe_chunk:
+            rc = cli.main(argv + ["--name", "chunk_auto", "--scan-chunk", str(FEATURE_CHUNK)])
+        if rc != 0:
+            raise AssertionError(f"cli dad --scan-chunk returned {rc}")
+        chunked = probe_chunk.trainers[-1]
+        if chunked._resident is None:
+            raise AssertionError("--scan-chunk --resident auto: no resident corpus")
+        diffs = compare_histories(read_history(chunked), history)
+        chunk_s = [e["seconds"] for e in probe_chunk.epochs]
+        print(f"train_features: --scan-chunk {FEATURE_CHUNK} --resident auto history "
+              f"equals per-step within METRIC_TOL, max |diff| by series "
+              f"{json.dumps(diffs)}; epoch s {chunk_s}", flush=True)
+        del chunked, probe_chunk
+        report = streamed_chunks_against_per_step(
+            lambda chunk: CrossDomainTrainer(open_cfg, experiment_name=f"streamed_{chunk}",
+                                             clean_store=stores[0], noisy_store=stores[1],
+                                             resident=False, scan_chunk=chunk), epoch=2)
+        print(f"train_features: --scan-chunk {FEATURE_CHUNK} --resident off, the first "
+              f"{FEATURE_STREAMED_CHUNKS} chunks of epoch 2 against per-step from one seed: "
+              + json.dumps(report), flush=True)
 
         # DACP opened, so that the consistency and ECDA terms carry weight
         cpu_cfg = dataclasses.replace(cfg, dropout_rate=0.0, results_base_dir="card_cpu",
@@ -2472,10 +2533,10 @@ def run_preprocess(root: str, corpus: dict, manifests: str, ckpt: str, best_pth:
 # stores and phase 9's corpus and checkpoint: 5 pretrain epochs (the tones
 # separate within a few), 2 epochs an experiment (warmup 1, so that DACP,
 # ECDA and the consistency term run in the second)
-PRETRAIN_EPOCHS, EXPERIMENT_EPOCHS, PRETRAIN_COMPARE_EPOCHS = 5, 2, 2
+PRETRAIN_EPOCHS, EXPERIMENT_EPOCHS, PRETRAIN_COMPARE_EPOCHS = 5, 2, 1
 # pretrain test accuracy "well above" chance (4 classes)
 PRETRAIN_MIN_TEST_ACC = 0.5
-# card vs CPU pretrain, 2 epochs (~100 Adam steps at lr 2e-4) from one init,
+# card vs CPU pretrain, 1 epoch (~50 Adam steps at lr 2e-4) from one init,
 # f32 on both with TF32 off: the gradients differ by summation order only,
 # but Adam divides each by its running RMS, so a weight whose gradient
 # cancels to ~0 can take a step a few percent of lr apart on each device:
@@ -4040,24 +4101,298 @@ def run_stage1_and_fused(only_fused: bool = False, experiments: bool = True,
             raise AssertionError(f"manifest: {len(files)} clips, expected {corpus['clips']}")
         print(f"stage1: corpus {json.dumps(corpus)}, written in {write_s:.1f} s; cli manifest "
               f"{manifest_s:.2f} s", flush=True)
+        elapsed("phase 9")
         fused_info = run_fused_trainer(root, manifests, ckpt) if fused else None
         pre = exp = None
         if not only_fused:
+            elapsed("phase 10")
             pre = run_preprocess(root, corpus, manifests, ckpt, fused_info["best_path"])
+            elapsed("phase 11")
             exp = run_experiments(root, manifests, ckpt, pre["stores"]) if experiments else None
+        elapsed("phase 12")
         d2v_info = run_d2v(root, manifests, ckpt) if d2v else None
+        elapsed("phase 13")
         par = run_parallel(root, manifests, ckpt) if parallel else None
+        elapsed("phase 14")
         d2vp = run_d2v_parallel(root, manifests, ckpt) if d2v_parallel else None
     return fused_info, pre, exp, d2v_info, par, d2vp
+
+
+# phase 15: the protocol's clips per corpus (the JAX reports'), cut to 10 DAD
+# epochs (build_configs: warmup max(10 // 5, 2) = 2)
+PARITY_CLIPS = {"iemocap": 600, "casia": 800, "emodb": 1000}
+PARITY_EPOCHS, PARITY_DIM, PARITY_SEED = 10, 48, 0
+PARITY_ROW = (("pretrain_UA", ("pretrain_test_wa",)),
+              ("best_noisy_val_UA", ("best_noisy_val_wa",)),
+              ("noisy_UA", ("noisy_test", "weighted_accuracy")),
+              ("noisy_WA", ("noisy_test", "accuracy")),
+              ("clean_UA", ("clean_test", "weighted_accuracy")))
+
+
+def parity_row(row: dict) -> dict:
+    out = {}
+    for name, path in PARITY_ROW:
+        v = row
+        for k in path:
+            v = v[k]
+        out[name] = float(v)
+    return out
+
+
+class ParityProbe:
+    """Keeps, for one run of the port's side of the protocol, what its
+    pretrain returned, what its last pretrain evaluation read (the test
+    split at the best params) and what its DAD trainer's noisy test pass
+    read, so that each test clip's logits can be taken afterwards."""
+
+    def __enter__(self) -> "ParityProbe":
+        self.pretrain = self.pretrain_test = self.noisy_test = None
+        self._saved = (run_parity.pretrain_fold, pretrain_mod._run_eval,
+                       CrossDomainTrainer.validate)
+        pretrain_fold, run_eval, validate = self._saved
+        probe = self
+
+        def kept_pretrain(*a, **kw):
+            probe.pretrain = pretrain_fold(*a, **kw)
+            return probe.pretrain
+
+        def kept_eval(eval_step, params, it, device):
+            probe.pretrain_test = (params, it, device)
+            return run_eval(eval_step, params, it, device)
+
+        def kept_validate(trainer, it, domain, epoch=0):
+            if domain == "Noisy_Test":
+                probe.noisy_test = (trainer.eval_step, trainer.state.ssrl.student, it,
+                                    trainer.device)
+            return validate(trainer, it, domain, epoch)
+
+        run_parity.pretrain_fold, pretrain_mod._run_eval = kept_pretrain, kept_eval
+        CrossDomainTrainer.validate = kept_validate
+        return self
+
+    def __exit__(self, *exc) -> None:
+        run_parity.pretrain_fold, pretrain_mod._run_eval, CrossDomainTrainer.validate = \
+            self._saved
+
+
+def clip_logits(forward, it, device) -> tuple:
+    """(labels, logits) of the labelled valid rows of ``it`` through
+    ``forward(feats, padding_mask)`` on ``device``, on the host."""
+    labels, logits = [], []
+    with torch.no_grad():
+        for b in prefetch(it, depth=0, to_device=True, device=device):
+            keep = (b.row_valid & (b.labels >= 0)).cpu().numpy()
+            labels.append(b.labels.cpu().numpy()[keep].astype(np.int64))
+            logits.append(forward(b.feats, b.padding_mask).float().cpu().numpy()[keep])
+    return np.concatenate(labels), np.concatenate(logits)
+
+
+def parity_fixed_inputs(pre_cfg, dad_cfg, stores: tuple, root: str) -> tuple:
+    """One pretrain init and every DAD step's draws (the weak and strong
+    views and both student dropout keeps), drawn on the host from seeded
+    generators, for the port's runs on the card and on the CPU:
+    (init_params, step_draws). Each step's batch shape comes from the
+    iterators of a trainer built on the CPU for the purpose."""
+    _head, init = init_pretrain_head(torch.Generator().manual_seed(pre_cfg.random_seed),
+                                     pre_cfg.input_dim, pre_cfg.hidden_dim,
+                                     pre_cfg.num_classes)
+    shapes = CrossDomainTrainer(dataclasses.replace(dad_cfg, results_base_dir=f"{root}/shapes"),
+                                clean_store=stores[0], noisy_store=stores[1], device="cpu",
+                                prefetch_depth=0)
+    g = torch.Generator().manual_seed(dad_cfg.random_seed + 1)
+    rate = dad_cfg.dropout_rate
+
+    def keep(rows: int):
+        return draw_keep((rows, dad_cfg.hidden_dim), rate, g, "cpu") if 0 < rate < 1 else None
+
+    draws = {}
+    for epoch in range(dad_cfg.epochs):
+        for step, (c, n) in enumerate(paired_epoch(shapes.clean_train, shapes.noisy_train,
+                                                   epoch)):
+            d = draw_feature_step(g, torch.from_numpy(n.feats), torch.from_numpy(n.padding_mask),
+                                  dad_cfg.augment)
+            draws[(epoch, step)] = d._replace(clean_keep=keep(len(c.feats)),
+                                              strong_keep=keep(len(n.feats)))
+    return init, lambda epoch, step: draws[(epoch, step)]
+
+
+def parity_fixed_run(corpus: str, stores: tuple, fixed: tuple, device: str, root: str) -> dict:
+    """The port's two stages of the protocol at seed 0 on ``device`` from
+    the ``fixed`` init and draws, its results under ``root``: the row, the
+    seconds, the results dir, the histories and each test clip's logits."""
+    pre_cfg, dad_cfg = run_parity.build_configs(PARITY_DIM, PARITY_EPOCHS, PARITY_SEED,
+                                                root, corpus=corpus)
+    t0 = time.perf_counter()
+    with ParityProbe() as probe:
+        row = run_parity.run_port_side(pre_cfg, dad_cfg, *stores, 0, device,
+                                       init_params=fixed[0], step_draws=fixed[1])
+    seconds = time.perf_counter() - t0
+    reports = [d for d, _sub, files in os.walk(root)
+               if os.path.basename(d) == "reports"
+               and any(f.startswith("BEST_detailed_results_epoch_") for f in files)]
+    if len(reports) != 1:
+        raise AssertionError(f"parity {corpus} {device}: best reports in {reports}")
+    with open(f"{reports[0]}/training_history.json") as f:
+        dad_history = json.load(f)
+    head, _ = init_pretrain_head(torch.Generator(), pre_cfg.input_dim, pre_cfg.hidden_dim,
+                                 pre_cfg.num_classes)
+    params, it, dev = probe.pretrain_test
+    eval_step, student, noisy_it, noisy_dev = probe.noisy_test
+    tests = {"pretrain": clip_logits(lambda f, m: functional_call(head, params, (f, m)), it, dev),
+             "noisy": clip_logits(lambda f, m: eval_step(student, f, m)[1], noisy_it, noisy_dev)}
+    out = parity_row(row)
+    # the logits score the rows' UA: the probe kept the passes the rows read
+    for name, key in (("pretrain", "pretrain_UA"), ("noisy", "noisy_UA")):
+        y, logits = tests[name]
+        ua = 100 * balanced_accuracy(y, logits.argmax(-1), logits.shape[-1])
+        if abs(ua - out[key]) > 1e-9:
+            raise AssertionError(f"parity {corpus} {device}: {name} test logits give UA {ua}, "
+                                 f"the row {out[key]}")
+    return dict(row=out, seconds=seconds, results_dir=os.path.dirname(reports[0]),
+                pretrain_history=probe.pretrain["history"],
+                pretrain_best_epoch=probe.pretrain["best_epoch"], dad_history=dad_history,
+                tests=tests)
+
+
+def history_apart(a: dict, b: dict) -> dict:
+    """Each numeric series of two histories: its largest difference and the
+    first entry (epoch, 1-based) that differs at all."""
+    out = {}
+    for k in sorted(set(a) & set(b)):
+        x, y = (np.asarray(s[k], dtype=np.float64) for s in (a, b))
+        if x.shape != y.shape or not x.size:
+            out[k] = dict(lengths=[len(a[k]), len(b[k])])
+            continue
+        diff = np.abs(x - y)
+        parted = np.nonzero(diff > 0)[0]
+        out[k] = dict(max=float(diff.max()), first=int(parted[0]) + 1 if len(parted) else None)
+    return out
+
+
+def predictions_apart(a: tuple, b: tuple) -> dict:
+    """The test clips whose predictions differ between two runs' (labels,
+    logits), and the smaller top-2 logit margin of each."""
+    (ya, la), (yb, lb) = a, b
+    if not np.array_equal(ya, yb):
+        raise AssertionError("parity: the two runs scored different test clips")
+    differ = np.nonzero(la.argmax(-1) != lb.argmax(-1))[0]
+    margins = np.minimum(top_margin(la[differ]), top_margin(lb[differ]))
+    return dict(clips=int(len(ya)), differ=differ.tolist(), margins=margins.tolist(),
+                logit_max_abs_diff=float(np.abs(la - lb).max()))
+
+
+def run_parity_corpus(corpus: str) -> dict:
+    """Phase 15 for one corpus: run_parity.main on the card (port and
+    replica); then the port twice on the card and once on the CPU from one
+    init and one set of draws; the checks."""
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix=f"dad_parity_{corpus}_") as root:
+        out = f"{root}/report.json"
+        argv = ["--corpus", corpus, "--seed-start", str(PARITY_SEED),
+                "--seeds", str(PARITY_SEED + 1), "--epochs", str(PARITY_EPOCHS),
+                "--n-clips", str(PARITY_CLIPS[corpus]), "--dim", str(PARITY_DIM),
+                "--jax-report", "none", "--out", out]
+        rc = run_parity.main(argv)  # 1: a per-seed gate miss, which one seed does not test
+        main_s = time.perf_counter() - t0
+        if rc not in (0, 1):
+            raise AssertionError(f"parity {corpus}: run_parity exited {rc}")
+        with open(out) as f:
+            report = json.load(f)
+        metrics = report["metrics"]
+        card = {name: metrics[name]["port_per_seed"][0]
+                for name in ("pretrain_UA", "noisy_UA", "noisy_WA", "clean_UA")}
+        replica = {name: metrics[name]["torch_per_seed"][0]
+                   for name in ("pretrain_UA", "noisy_UA", "noisy_WA", "clean_UA")}
+        stores = run_parity.load_parity_stores(f"{root}/stores", corpus,
+                                               PARITY_CLIPS[corpus], PARITY_DIM)
+        pre_cfg, dad_cfg = run_parity.build_configs(PARITY_DIM, PARITY_EPOCHS, PARITY_SEED,
+                                                    root, corpus=corpus)
+        fixed = parity_fixed_inputs(pre_cfg, dad_cfg, stores, root)
+        runs = {name: parity_fixed_run(corpus, stores, fixed, device, f"{root}/{name}")
+                for name, device in (("card", "cuda"), ("card_again", "cuda"), ("cpu", "cpu"))}
+        check = subprocess.run(
+            [sys.executable, os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                                          "tools", "parity_check.py"),
+             "--ours", runs["card"]["results_dir"], "--theirs", runs["cpu"]["results_dir"]],
+            capture_output=True, text=True, timeout=60)
+    if check.returncode not in (0, 1) or "noisy-domain parity" not in check.stdout:
+        raise AssertionError(f"parity {corpus}: tools/parity_check.py exited "
+                             f"{check.returncode}: {check.stdout}{check.stderr}")
+    # run_port_side and run_replica_side raise where no best checkpoint was saved
+    rows = {"port card": card, "replica card": replica,
+            **{f"port {name.replace('_', ' ')}, fixed draws": r["row"]
+               for name, r in runs.items()}}
+    for name, row in rows.items():
+        print(f"parity {corpus}: {name} {json.dumps(row)}", flush=True)
+        if row["noisy_UA"] <= 25.0:
+            raise AssertionError(f"parity {corpus}: {name} noisy UA {row['noisy_UA']} "
+                                 "not above chance")
+    if "cpu" in (report["runs"][0]["port_device"], report["runs"][0]["replica_device"]):
+        raise AssertionError(f"parity {corpus}: the report did not run on the card")
+    # the card against itself (the drift) and against the CPU, from one init
+    # and one set of draws: bit-equal predictions at drift 0, a clip apart
+    # only at a top-2 logit margin under INFER_TIE_MARGIN (phase 10's
+    # criterion); at a drift above 0, UA within 4x that drift
+    a, b, c = runs["card"], runs["card_again"], runs["cpu"]
+    agree = {}
+    for name, key in (("pretrain", "pretrain_UA"), ("noisy", "noisy_UA")):
+        agree[name] = dict(drift=abs(a["row"][key] - b["row"][key]),
+                           apart=abs(a["row"][key] - c["row"][key]),
+                           card_again=predictions_apart(a["tests"][name], b["tests"][name]),
+                           cpu=predictions_apart(a["tests"][name], c["tests"][name]))
+    histories = dict(
+        pretrain_best_epoch=[r["pretrain_best_epoch"] for r in (a, b, c)],
+        pretrain_card_cpu=history_apart(a["pretrain_history"], c["pretrain_history"]),
+        dad_card_cpu=history_apart(a["dad_history"], c["dad_history"]),
+        pretrain_card_again=history_apart(a["pretrain_history"], b["pretrain_history"]),
+        dad_card_again=history_apart(a["dad_history"], b["dad_history"]))
+    seconds = time.perf_counter() - t0
+    print(f"parity {corpus}: report keys {sorted(report)}; metric keys "
+          f"{sorted(metrics['noisy_UA'])}", flush=True)
+    print(f"parity {corpus}: parity_check card vs cpu rc {check.returncode}: "
+          f"{check.stdout.strip().splitlines()[-1]}", flush=True)
+    print(f"parity {corpus}: card vs card and vs cpu, fixed draws {json.dumps(agree)}",
+          flush=True)
+    print(f"parity {corpus}: histories {json.dumps(histories)}", flush=True)
+    print(f"parity {corpus}: seconds: run_parity.main {main_s:.1f} (replica "
+          f"{report['runs'][0]['torch_seconds'][0]:.1f}, port "
+          f"{report['runs'][0]['port_seconds'][0]:.1f}), fixed draws card "
+          f"{a['seconds']:.1f}, card again {b['seconds']:.1f}, cpu {c['seconds']:.1f}; "
+          f"phase {seconds:.1f}", flush=True)
+    for name, r in agree.items():
+        if r["drift"] == 0 and r["card_again"]["differ"]:
+            raise AssertionError(f"parity {corpus}: two card runs predict {name} test clips "
+                                 f"{r['card_again']['differ']} apart at one UA")
+        if r["drift"] > 0:
+            ok = r["apart"] <= 4 * r["drift"]
+        else:
+            ok = not r["cpu"]["differ"] or max(r["cpu"]["margins"]) < INFER_TIE_MARGIN
+        if not ok:
+            raise AssertionError(
+                f"parity {corpus}: card vs CPU {name}: UA {r['apart']} apart at a drift of "
+                f"{r['drift']}; clips {r['cpu']['differ']} predicted apart at top-2 margins "
+                f"{r['cpu']['margins']}")
+    return dict(corpus=corpus, rows=rows, agree=agree, histories=histories, seconds=seconds)
+
+
+def run_parity_phase(corpora=("iemocap",)) -> list:
+    """Phase 15: the protocol on the card for each of ``corpora``."""
+    return [run_parity_corpus(c) for c in corpora]
 
 
 T_START = time.perf_counter()
 
 
+def elapsed(phase: str) -> None:
+    """The script's seconds so far, where ``phase`` starts."""
+    print(f"elapsed: {phase} starts at {time.perf_counter() - T_START:.1f} s", flush=True)
+
+
 def parse_args(argv=None) -> argparse.Namespace:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--only", choices=("attention", "conv", "trainer", "fused", "preprocess",
-                                      "experiments", "d2v", "parallel", "d2v-parallel"),
+                                      "experiments", "d2v", "parallel", "d2v-parallel",
+                                      "parity"),
                    help="attention: build and run phases 1-3 only; conv: build conv.cu and "
                         "run phases 1, 2 and 6, then the conv grid comparison (to time two "
                         "checkouts in one call); trainer: build nothing, run phase 8 only; "
@@ -4068,7 +4403,8 @@ def parse_args(argv=None) -> argparse.Namespace:
                         "reads phase 10's stores); d2v: build attention.cu and run phases "
                         "1, 2 and 12 on phase 9's corpus and checkpoint; "
                         "parallel: build attention.cu, write phase 9's corpus and run phases "
-                        "1, 2 and 13; d2v-parallel: the same with phase 14")
+                        "1, 2 and 13; d2v-parallel: the same with phase 14; parity: build "
+                        "nothing, run phase 15 for all three corpora")
     p.add_argument("--worker", default=None, help=argparse.SUPPRESS)
     return p.parse_args(argv)
 
@@ -4092,7 +4428,7 @@ def main(argv=None) -> int:
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
 
-    sources = {None: SOURCES, "trainer": (), "fused": ("attention",),
+    sources = {None: SOURCES, "trainer": (), "parity": (), "fused": ("attention",),
                "preprocess": ("attention",), "experiments": ("attention",),
                "d2v": ("attention",), "parallel": ("attention",),
                "d2v-parallel": ("attention",)}.get(args.only, (args.only,))
@@ -4109,6 +4445,8 @@ def main(argv=None) -> int:
 
     if args.only == "trainer":
         run_feature_trainer()
+    elif args.only == "parity":
+        run_parity_phase(tuple(PARITY_CLIPS))
     elif args.only in ("fused", "preprocess", "experiments", "d2v", "parallel", "d2v-parallel"):
         run_stage1_and_fused(only_fused=args.only in ("fused", "d2v", "parallel", "d2v-parallel"),
                              experiments=args.only == "experiments", d2v=args.only == "d2v",
@@ -4132,15 +4470,22 @@ def main(argv=None) -> int:
     # the fused step's attention shape: B = 64 clips of 4 s (199 frames)
     step_attn = attn[(torch.bfloat16, 199, TRAIN_B)]
 
+    elapsed("phase 4")
     slice_info = run_slice()
+    elapsed("phase 5")
     norm = run_norm_phase()
     clean, noisy = training_batches()
+    elapsed("phase 6")
     conv_info = run_conv_phase(slice_info["enc_sd"], noisy.wav, noisy.wav_mask)
+    elapsed("phase 7")
     train = run_training_slice(slice_info["enc_sd"], clean, noisy)
     del clean, noisy
     torch.cuda.empty_cache()
+    elapsed("phase 8")
     run_feature_trainer()
     fused, pre, exp, d2v_info, par, d2vp = run_stage1_and_fused()
+    elapsed("phase 15")
+    run_parity_phase()
 
     def entry(name, source, replaces, launches, r):
         return dict(name=name, route="cuda", source=f"{PORT_PKG}/csrc/{source}",

@@ -88,11 +88,10 @@ from test_fused_trainer import TINY_ENC, _make_noise_root, make_corpus, tiny_enc
 from test_torch_trainer import (
     OVERRIDES,
     _cfg_kw,
-    _jax_trainer_draws,
     _write_pretrain,
     _write_stores,
 )
-from torch_parity import jax_normal, jax_strong_draws, port_cfg, to_torch
+from torch_parity import jax_normal, jax_strong_draws, jax_trainer_draws, port_cfg, to_torch
 
 METRIC_TOL = dict(atol=2e-5, rtol=1e-4)
 PAIR = {"full_method": {}, "no_dacp": {"USE_DACP": False}}
@@ -271,7 +270,7 @@ def _feature_cfgs(stores, tmp_path, name):
 
 
 def _feature_draws(recorder, jcfg, overrides_of) -> dict:
-    draws = [_jax_trainer_draws(t, jax_apply_overrides(jcfg, overrides_of(i)))
+    draws = [jax_trainer_draws(t, jax_apply_overrides(jcfg, overrides_of(i)))
              for i, t in enumerate(recorder.trainers)]
     return _one_draw_stream(draws)
 

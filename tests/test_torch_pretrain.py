@@ -19,8 +19,6 @@ the best epoch and the test predictions are compared exactly.
 import json
 import os
 
-import jax
-import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -37,9 +35,6 @@ from robust_speech_emotion_recognition_via_dynamic_asymmetric_distillation_in_no
 from robust_speech_emotion_recognition_via_dynamic_asymmetric_distillation_in_noisy_environments_tpu.models.convert import (
     flax_pretrain_head_to_torch as jax_flax_to_torch,
     load_pretrain_head_checkpoint as jax_load_pretrain,
-)
-from robust_speech_emotion_recognition_via_dynamic_asymmetric_distillation_in_noisy_environments_tpu.models.heads import (
-    PretrainHead as JaxPretrainHead,
 )
 from robust_speech_emotion_recognition_via_dynamic_asymmetric_distillation_in_noisy_environments_tpu.train import (
     early_stopping as jax_early_stopping,
@@ -70,6 +65,8 @@ from robust_speech_emotion_recognition_via_dynamic_asymmetric_distillation_in_no
     schedules,
 )
 
+from torch_parity import jax_pretrain_init
+
 METRIC_TOL = dict(atol=2e-5, rtol=1e-4)
 STATE_TOL = dict(atol=2e-6, rtol=1e-4)
 CLASSES = ["ang", "hap", "neu", "sad"]
@@ -98,15 +95,6 @@ def store_dir(tmp_path_factory):
         names.append(f"Ses0{s}F_impro0{i % 9}_F{i:03d}")
     write_feature_store(str(root), clips, labels=labels, utt_names=names, sidecar="emo")
     return str(root)
-
-
-def _jax_init(cfg, fold, seed=None):
-    """The JAX pretrain_fold's init, PRNGKey(seed + fold), as numpy."""
-    seed = cfg.random_seed if seed is None else seed
-    head = JaxPretrainHead(cfg.input_dim, cfg.hidden_dim, cfg.num_classes)
-    params = head.init(jax.random.PRNGKey(seed + fold), jnp.zeros((1, 4, cfg.input_dim)),
-                       jnp.zeros((1, 4), bool))
-    return jax.tree.map(np.asarray, params)
 
 
 def _json(path):
@@ -188,7 +176,7 @@ def test_init_and_conversion_and_checkpoints(tmp_path):
     for k, v in head.state_dict().items():
         assert torch.equal(v, params[k])
 
-    jparams = _jax_init(pretrain_preset("iemocap", input_dim=D, hidden_dim=8), 0)
+    jparams = jax_pretrain_init(pretrain_preset("iemocap", input_dim=D, hidden_dim=8), 0)
     ours = flax_pretrain_head_to_torch(jparams)
     ref = jax_flax_to_torch(jparams)
     assert sorted(ours) == sorted(ref)
@@ -205,7 +193,7 @@ def test_pretrain_fold_matches_jax(store_dir, variant):
     want = jax_pretrain.pretrain_fold(jcfg, jax_load_store(store_dir, jcfg.label_map), 0)
     got = pretrain.pretrain_fold(cfg, load_feature_store(store_dir, cfg.label_map), 0,
                                  device="cpu",
-                                 init_params=flax_pretrain_head_to_torch(_jax_init(jcfg, 0)))
+                                 init_params=flax_pretrain_head_to_torch(jax_pretrain_init(jcfg, 0)))
 
     history = got["history"]
     _assert_history_close(history, want["history"])
@@ -237,7 +225,7 @@ def test_cli_pretrain_matches_jax(store_dir, tmp_path, monkeypatch):
 
     def from_jax_init(cfg, store, fold, **kw):
         return real(cfg, store, fold, init_params=flax_pretrain_head_to_torch(
-            _jax_init(cfg, fold)), **kw)
+            jax_pretrain_init(cfg, fold)), **kw)
 
     monkeypatch.setattr(pretrain, "pretrain_fold", from_jax_init)
     argv = ["pretrain", "--corpus", "iemocap", "--feat-path", store_dir, "--folds", "0",

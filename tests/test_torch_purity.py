@@ -41,7 +41,8 @@ def test_port_and_chip_smoke_import_without_jax():
         assert any(m.startswith(f"{PORT_PKG}.{sub}.") for m in PORT_MODULES), sub
     for mod in ("models.d2v_masking", "models.d2v_pretrain", "train.d2v_pretrain",
                 "data.binarized",  # d2v pretraining
-                "parallel.mesh", "parallel.sharded"):  # the process grid
+                "parallel.mesh", "parallel.sharded",  # the process grid
+                "tools.torch_replica", "tools.run_parity", "tools.pool_parity"):  # parity
         assert f"{PORT_PKG}.{mod}" in PORT_MODULES, mod
     env = dict(os.environ, PYTHONPATH=str(REPO) + os.pathsep + os.environ.get("PYTHONPATH", ""))
     res = subprocess.run(
@@ -66,7 +67,7 @@ def test_port_sources_never_name_the_jax_package():
 
 @pytest.mark.parametrize("entry", ["FeatureExtractor", "EmotionPredictor", "cli",
                                    "init_fused", "norm_probe", "pretrain", "experiment",
-                                   "tsne", "d2v-pretrain"])
+                                   "tsne", "d2v-pretrain", "torch_replica", "run_parity"])
 def test_entry_points_without_device_raise_without_cuda(monkeypatch, entry):
     from robust_speech_emotion_recognition_via_dynamic_asymmetric_distillation_in_noisy_environments_tpu_torch import (
         cli,
@@ -119,6 +120,18 @@ def test_entry_points_without_device_raise_without_cuda(monkeypatch, entry):
                                                   "--save-dir", "unused"])
             assert args.device == "cuda"
             args.func(args)
+        elif entry == "torch_replica":
+            from robust_speech_emotion_recognition_via_dynamic_asymmetric_distillation_in_noisy_environments_tpu_torch.tools.torch_replica import (
+                pretrain_fold_torch,
+            )
+
+            pretrain_fold_torch(pretrain_preset("iemocap"), None, 0)
+        elif entry == "run_parity":
+            from robust_speech_emotion_recognition_via_dynamic_asymmetric_distillation_in_noisy_environments_tpu_torch.tools import (
+                run_parity,
+            )
+
+            run_parity.main(["--seeds", "1"])
         elif entry == "tsne":
             from robust_speech_emotion_recognition_via_dynamic_asymmetric_distillation_in_noisy_environments_tpu_torch.analysis.tsne import (
                 make_embedder,

@@ -61,12 +61,12 @@ from test_torch_trainer import (
     _assert_bias_logs_close,
     _assert_history_close,
     _cfg_kw,
-    _jax_trainer_draws,
     _json,
     _reports,
     _write_pretrain,
     _write_stores,
 )
+from torch_parity import jax_trainer_draws
 
 
 def _feature_store(rng, n=30, dim=4, cls=JaxFeatureStore):
@@ -211,7 +211,7 @@ def test_resident_feature_trainer_matches_streamed_and_jax(tmp_path, monkeypatch
     jt = JaxTrainer(jcfg, fold=0, experiment_name="jax", resident=True)
     assert jt._resident is not None
     jout = jt.train()
-    draws = _jax_trainer_draws(jt, jcfg)
+    draws = jax_trainer_draws(jt, jcfg)
     runs = {}
     for name, res in (("streamed", False), ("resident", True)):
         t = CrossDomainTrainer(cfg, fold=0, experiment_name=name, device="cpu", resident=res,

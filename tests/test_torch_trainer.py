@@ -43,7 +43,6 @@ from robust_speech_emotion_recognition_via_dynamic_asymmetric_distillation_in_no
 )
 from robust_speech_emotion_recognition_via_dynamic_asymmetric_distillation_in_noisy_environments_tpu.data.batching import (
     Batch as JaxBatch,
-    paired_epoch as jax_paired_epoch,
 )
 from robust_speech_emotion_recognition_via_dynamic_asymmetric_distillation_in_noisy_environments_tpu.train import (
     CrossDomainTrainer as JaxTrainer,
@@ -79,7 +78,7 @@ from robust_speech_emotion_recognition_via_dynamic_asymmetric_distillation_in_no
     run_cv,
 )
 
-from torch_parity import jax_normal, jax_strong_draws
+from torch_parity import jax_normal, jax_strong_draws, jax_trainer_draws
 
 METRIC_TOL = dict(atol=2e-5, rtol=1e-4)
 STATE_TOL = dict(atol=2e-6, rtol=1e-4)
@@ -166,22 +165,6 @@ def _reports(trainer):
     return os.path.join(trainer.results_dir, "reports")
 
 
-def _jax_trainer_draws(jt, jcfg):
-    """{(epoch, step): StepDraws} replaying the JAX trainer's key stream."""
-    key = jax.random.PRNGKey(jcfg.random_seed + 1)
-    draws = {}
-    for epoch in range(jcfg.epochs):
-        for step, (_clean, noisy) in enumerate(jax_paired_epoch(jt.clean_train,
-                                                                jt.noisy_train, epoch)):
-            key, k = jax.random.split(key)
-            _k_dc, k_weak, k_strong, _k_ds = jax.random.split(k, 4)
-            draws[(epoch, step)] = StepDraws(
-                weak=jax_normal(k_weak, noisy.feats.shape),
-                strong=jax_strong_draws(k_strong, noisy.feats.shape, noisy.padding_mask,
-                                        jcfg.augment))
-    return draws
-
-
 def test_whole_trainer_matches_jax(tmp_path, monkeypatch):
     monkeypatch.chdir(tmp_path)
     clean, noisy = _write_stores(str(tmp_path))
@@ -192,7 +175,7 @@ def test_whole_trainer_matches_jax(tmp_path, monkeypatch):
 
     jt = JaxTrainer(jcfg, fold=0, experiment_name="jax")
     jout = jt.train()
-    draws = _jax_trainer_draws(jt, jcfg)
+    draws = jax_trainer_draws(jt, jcfg)
     t = CrossDomainTrainer(cfg, fold=0, experiment_name="port", device="cpu",
                            step_draws=lambda e, s: draws[(e, s)])
     np.testing.assert_allclose(t.anchors.numpy(), np.asarray(jt.anchors), **METRIC_TOL)

@@ -100,6 +100,41 @@ def jax_normal(key, shape):
     return torch.from_numpy(np.array(jax.random.normal(key, shape)))
 
 
+def jax_pretrain_init(cfg, fold, seed=None):
+    """The JAX pretrain_fold's init, PRNGKey(seed + fold), as numpy."""
+    import jax.numpy as jnp
+
+    from robust_speech_emotion_recognition_via_dynamic_asymmetric_distillation_in_noisy_environments_tpu.models.heads import PretrainHead as JaxPretrainHead
+
+    seed = cfg.random_seed if seed is None else seed
+    head = JaxPretrainHead(cfg.input_dim, cfg.hidden_dim, cfg.num_classes)
+    params = head.init(jax.random.PRNGKey(seed + fold), jnp.zeros((1, 4, cfg.input_dim)),
+                       jnp.zeros((1, 4), bool))
+    return jax.tree.map(np.asarray, params)
+
+
+def jax_trainer_draws(jt, jcfg):
+    """{(epoch, step): StepDraws} replaying the JAX feature trainer's key
+    stream: ``PRNGKey(seed + 1)`` split once per step, each step's key split
+    in 4 (clean dropout, weak, strong, student dropout) as the JAX step
+    splits it, at the shape of each step's own noisy batch."""
+    from robust_speech_emotion_recognition_via_dynamic_asymmetric_distillation_in_noisy_environments_tpu.data.batching import paired_epoch as jax_paired_epoch
+    from robust_speech_emotion_recognition_via_dynamic_asymmetric_distillation_in_noisy_environments_tpu_torch.dad import StepDraws
+
+    key = jax.random.PRNGKey(jcfg.random_seed + 1)
+    draws = {}
+    for epoch in range(jcfg.epochs):
+        for step, (_clean, noisy) in enumerate(jax_paired_epoch(jt.clean_train,
+                                                                jt.noisy_train, epoch)):
+            key, k = jax.random.split(key)
+            _k_dc, k_weak, k_strong, _k_ds = jax.random.split(k, 4)
+            draws[(epoch, step)] = StepDraws(
+                weak=jax_normal(k_weak, noisy.feats.shape),
+                strong=jax_strong_draws(k_strong, noisy.feats.shape, noisy.padding_mask,
+                                        jcfg.augment))
+    return draws
+
+
 def port_cfg(jax_cfg):
     """The port's copy of a JAX-package config dataclass."""
     from robust_speech_emotion_recognition_via_dynamic_asymmetric_distillation_in_noisy_environments_tpu_torch import (
