@@ -10,10 +10,21 @@ Two entry layers:
 - ``PredictionServer``: stdlib HTTP server with ``POST /predict`` and
   ``GET /healthz``; handler threads enqueue requests, one dispatcher drains
   the queue into predictor batches.
+
+Spans (``utils/profiling.py``, on ``time.monotonic``): ``serving.request``
+(a handler thread, from ``do_POST`` to the reply written),
+``serving.queue`` (from the handler's put to the dispatcher's get;
+``batch``), ``serving.collect`` (the dispatcher, from a group's first get
+to its close), ``serving.batch`` (one B-chunk; ``batch``) and under it
+``serving.assemble`` (padding and the host-to-device copy) and
+``serving.results`` (the reply dicts, once the probabilities are on the
+host); a second ``serving.results`` spans setting a group's futures. The
+rest of a batch is the forward's issue and the wait for its copy back.
 """
 
 from __future__ import annotations
 
+import itertools
 import json
 import queue
 import threading
@@ -31,11 +42,13 @@ from ..dad.train_step import make_eval_step
 from ..models.extract import _bucket  # rounds UP past the top bucket —
 # a long clip gets a bigger batch instead of silent truncation
 from ..models.heads import DADHead, SSRLState
-from ..utils import get_logger, resolve_device
+from ..utils import get_logger, profiling, resolve_device
 
 logger = get_logger(__name__)
 
 FRAME_BUCKETS = (64, 128, 256, 512, 1024, 2048)
+
+_batch_ids = itertools.count(1)  # unique in the process, for the spans
 
 
 class EmotionPredictor:
@@ -88,6 +101,7 @@ class EmotionPredictor:
         self.class_names = list(cfg.class_names)  # id-sorted property
         self.requests_served = 0
         self.batches_run = 0
+        self._local = threading.local()
 
     @property
     def _params(self):
@@ -129,18 +143,17 @@ class EmotionPredictor:
         results: List[Optional[Dict[str, Any]]] = [None] * len(clips)
 
         def run(group):
-            T = _bucket(max(len(c) for c in group), self.frame_buckets)
-            feats = np.zeros((self.batch_size, T, self.cfg.input_dim), np.float32)
-            mask = np.ones((self.batch_size, T), bool)
-            for row, c in enumerate(group):
-                t = min(len(c), T)
-                feats[row, :t] = c[:t]
-                mask[row, :t] = False
-            _preds, logits = self._eval(
-                self._params,
-                torch.from_numpy(feats).to(self.device),
-                torch.from_numpy(mask).to(self.device),
-            )
+            with profiling.span("serving.assemble"):
+                T = _bucket(max(len(c) for c in group), self.frame_buckets)
+                feats = np.zeros((self.batch_size, T, self.cfg.input_dim), np.float32)
+                mask = np.ones((self.batch_size, T), bool)
+                for row, c in enumerate(group):
+                    t = min(len(c), T)
+                    feats[row, :t] = c[:t]
+                    mask[row, :t] = False
+                feats = torch.from_numpy(feats).to(self.device)
+                mask = torch.from_numpy(mask).to(self.device)
+            _preds, logits = self._eval(self._params, feats, mask)
             return logits
 
         return self._predict_grouped(clips, order, results, run)
@@ -170,16 +183,16 @@ class EmotionPredictor:
         batch_dtype = np.int16 if i16 else np.float32
 
         def run(group):
-            T = _bucket(max(len(c) for c in group), self.extractor.buckets)
-            wav = np.zeros((self.batch_size, T), batch_dtype)
-            mask = np.ones((self.batch_size, T), bool)
-            for row, c in enumerate(group):
-                wav[row, : len(c)] = c
-                mask[row, : len(c)] = False
-            return self._wav_eval(
-                torch.from_numpy(wav).to(self.device),
-                torch.from_numpy(mask).to(self.device),
-            )
+            with profiling.span("serving.assemble"):
+                T = _bucket(max(len(c) for c in group), self.extractor.buckets)
+                wav = np.zeros((self.batch_size, T), batch_dtype)
+                mask = np.ones((self.batch_size, T), bool)
+                for row, c in enumerate(group):
+                    wav[row, : len(c)] = c
+                    mask[row, : len(c)] = False
+                wav = torch.from_numpy(wav).to(self.device)
+                mask = torch.from_numpy(mask).to(self.device)
+            return self._wav_eval(wav, mask)
 
         return self._predict_grouped(clips, order, results, run)
 
@@ -188,32 +201,44 @@ class EmotionPredictor:
         per B-chunk for logits and assembles per-clip result dicts in the
         caller's original order."""
         B = self.batch_size
+        batch_of = [0] * len(clips)
         for start in range(0, len(order), B):
             idx = order[start : start + B]
-            logits = run_batch([clips[i] for i in idx])
-            probs = torch.softmax(logits, dim=-1).cpu().numpy()
-            for row, i in enumerate(idx):
-                k = int(np.argmax(probs[row]))
-                results[int(i)] = {
-                    "label": self.class_names[k],
-                    "label_id": k,
-                    "probs": {
-                        name: float(probs[row, j])
-                        for j, name in enumerate(self.class_names)
-                    },
-                }
+            bid = next(_batch_ids)
+            with profiling.span("serving.batch", batch=bid):
+                logits = run_batch([clips[i] for i in idx])
+                probs = torch.softmax(logits, dim=-1).cpu().numpy()
+                with profiling.span("serving.results"):
+                    for row, i in enumerate(idx):
+                        k = int(np.argmax(probs[row]))
+                        results[int(i)] = {
+                            "label": self.class_names[k],
+                            "label_id": k,
+                            "probs": {
+                                name: float(probs[row, j])
+                                for j, name in enumerate(self.class_names)
+                            },
+                        }
+                        batch_of[int(i)] = bid
             self.batches_run += 1
         self.requests_served += len(clips)
+        self._local.batch_of = batch_of
         return results
+
+    def last_batch_ids(self) -> List[int]:
+        """The batch id of each clip of this thread's last predict call, in
+        the caller's order (the ``batch`` of its ``serving.batch`` span)."""
+        return getattr(self._local, "batch_of", [])
 
 
 class _WorkItem:
-    __slots__ = ("kind", "payload", "future")
+    __slots__ = ("kind", "payload", "future", "t_put", "t_get")
 
     def __init__(self, kind: str, payload: np.ndarray):
         self.kind = kind
         self.payload = payload
         self.future: Future = Future()
+        self.t_put = self.t_get = 0.0  # queue entry and exit, time.monotonic
 
 
 class PredictionServer:
@@ -278,35 +303,37 @@ class PredictionServer:
                     self._json(404, {"error": "unknown path"})
 
             def do_POST(self):
-                if self.path != "/predict":
-                    self._json(404, {"error": "unknown path"})
-                    return
-                try:
-                    item = server._parse_request(self)
-                except (ValueError, TypeError, KeyError, json.JSONDecodeError) as e:
-                    self._json(400, {"error": str(e)})
-                    return
-                if item is None:
-                    self._json(413, {"error": "body too large"})
-                    return
-                if server._stop.is_set():
-                    self._json(503, {"error": "server shutting down"})
-                    return
-                server._queue.put(item)
-                if server._stop.is_set():
-                    # closes the put-after-final-drain race: either the
-                    # dispatcher/drain completed the future first (done)
-                    # or we fail it here — no client waits out the timeout
+                with profiling.span("serving.request"):
+                    if self.path != "/predict":
+                        self._json(404, {"error": "unknown path"})
+                        return
                     try:
-                        item.future.set_exception(
-                            RuntimeError("server shutting down")
-                        )
-                    except Exception:  # already completed — fine
-                        pass
-                try:
-                    self._json(200, item.future.result(timeout=120))
-                except Exception as e:  # noqa: BLE001 — report, don't crash
-                    self._json(500, {"error": str(e)})
+                        item = server._parse_request(self)
+                    except (ValueError, TypeError, KeyError, json.JSONDecodeError) as e:
+                        self._json(400, {"error": str(e)})
+                        return
+                    if item is None:
+                        self._json(413, {"error": "body too large"})
+                        return
+                    if server._stop.is_set():
+                        self._json(503, {"error": "server shutting down"})
+                        return
+                    item.t_put = time.monotonic()
+                    server._queue.put(item)
+                    if server._stop.is_set():
+                        # closes the put-after-final-drain race: either the
+                        # dispatcher/drain completed the future first (done)
+                        # or we fail it here — no client waits out the timeout
+                        try:
+                            item.future.set_exception(
+                                RuntimeError("server shutting down")
+                            )
+                        except Exception:  # already completed — fine
+                            pass
+                    try:
+                        self._json(200, item.future.result(timeout=120))
+                    except Exception as e:  # noqa: BLE001 — report, don't crash
+                        self._json(500, {"error": str(e)})
 
         class Server(ThreadingHTTPServer):
             # socketserver's default listen backlog of 5 RSTs connections
@@ -387,16 +414,20 @@ class PredictionServer:
                 first = self._queue.get(timeout=0.1)
             except queue.Empty:
                 continue
+            t0 = first.t_get = time.monotonic()
             group = [first]
-            deadline = time.monotonic() + self.max_wait_ms / 1e3
+            deadline = t0 + self.max_wait_ms / 1e3
             while len(group) < self.max_batch:
                 remaining = deadline - time.monotonic()
                 if remaining <= 0:
                     break
                 try:
-                    group.append(self._queue.get(timeout=remaining))
+                    item = self._queue.get(timeout=remaining)
                 except queue.Empty:
                     break
+                item.t_get = time.monotonic()
+                group.append(item)
+            profiling.add_span("serving.collect", t0, time.monotonic())
             self._run_group(group)
 
     def _run_group(self, group: List[_WorkItem]) -> None:
@@ -405,6 +436,7 @@ class PredictionServer:
             items = [it for it in group if it.kind == kind]
             if not items:
                 continue
+            batch_of = [0] * len(items)
             try:
                 if kind == "features":
                     outs = self.predictor.predict_features(
@@ -412,16 +444,20 @@ class PredictionServer:
                     )
                 else:
                     outs = self.predictor.predict_wavs([it.payload for it in items])
-                for it, out in zip(items, outs):
-                    # a future already failed (e.g. by shutdown's drain)
-                    # must not abort delivery for the rest of the group
-                    if not it.future.done():
-                        it.future.set_result(out)
+                batch_of = self.predictor.last_batch_ids()
+                with profiling.span("serving.results"):
+                    for it, out in zip(items, outs):
+                        # a future already failed (e.g. by shutdown's drain)
+                        # must not abort delivery for the rest of the group
+                        if not it.future.done():
+                            it.future.set_result(out)
             except Exception as e:  # noqa: BLE001 — fail the whole group
                 logger.exception("predictor batch failed")
                 for it in items:
                     if not it.future.done():
                         it.future.set_exception(e)
+            for it, bid in zip(items, batch_of):
+                profiling.add_span("serving.queue", it.t_put, it.t_get, batch=bid)
 
     def _start_dispatcher(self) -> None:
         if not self._dispatcher.is_alive():

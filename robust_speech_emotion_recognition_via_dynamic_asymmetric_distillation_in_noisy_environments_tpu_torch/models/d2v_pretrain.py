@@ -49,6 +49,7 @@ from torch import nn
 from torch.func import functional_call
 
 from ..configs import D2vPretrainConfig, EncoderConfig
+from ..utils import profiling
 from .d2v_masking import (
     apply_mask,
     gather_unmasked,
@@ -637,11 +638,14 @@ def d2v_update(model: D2vPretrainModel, tx: D2vOptimizer, loss_fn, state: D2vTra
     """One update: the loss, its gradient, the optimizer and the EMA.
     The process grid's step (``parallel/d2v_sharded.py``) gives its
     ``cut``, the sum of the gradients over dp (``reduce_grads``) and the
-    global norm of sharded gradients (``grad_norm``)."""
-    leaves = {k: v.detach().requires_grad_(True) for k, v in state.params.items()}
-    total, metrics = loss_fn(leaves, state.ema_blocks, wav, wav_pad, generator, draws, cut)
-    grads = torch.autograd.grad(total, list(leaves.values()), allow_unused=True)
-    with torch.no_grad():
+    global norm of sharded gradients (``grad_norm``). Spans
+    ``d2v_pretrain.loss`` (the loss and its gradient) and
+    ``d2v_pretrain.update`` (the optimizer and the EMA) time their issue."""
+    with profiling.span("d2v_pretrain.loss"):
+        leaves = {k: v.detach().requires_grad_(True) for k, v in state.params.items()}
+        total, metrics = loss_fn(leaves, state.ema_blocks, wav, wav_pad, generator, draws, cut)
+        grads = torch.autograd.grad(total, list(leaves.values()), allow_unused=True)
+    with profiling.span("d2v_pretrain.update"), torch.no_grad():
         params = {k: v.detach() for k, v in leaves.items()}
         grads = {k: torch.zeros_like(params[k]) if g is None else g
                  for k, g in zip(leaves, grads)}

@@ -8,14 +8,23 @@
   at both ends of a step, so a step's time is the card's too.
 - ``device_memory_stats``: per-device memory in use, its peak and the
   device's size, from ``torch.cuda.memory_stats``.
+- ``Recorder``: the program's spans, always on. ``RECORDER`` is the
+  process's own, and ``span``, ``add_span`` and ``spans`` are its methods.
+  Spans are taken on ``time.monotonic``, the clock a device trace can be
+  mapped onto, and kept in a bounded ring in memory. Recording only reads
+  the host clock: it never synchronises the device or reads a device
+  value, so a span around asynchronous work measures the time to issue it
+  (and any wait the work itself makes).
 """
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import os
+import threading
 import time
-from typing import Dict, List, Optional
+from typing import Deque, Dict, List, NamedTuple, Optional
 
 import torch
 
@@ -91,3 +100,76 @@ def device_memory_stats() -> Dict[str, Dict]:
             "bytes_limit": torch.cuda.get_device_properties(i).total_memory,
         }
     return out
+
+
+_clock = time.monotonic
+
+
+class Span(NamedTuple):
+    """One recorded interval, ``start``/``end`` on ``time.monotonic``."""
+
+    name: str
+    start: float
+    end: float
+    attrs: Dict[str, int]
+
+
+class _OpenSpan:
+    """``with recorder.span(name, **attrs):`` — the block as one span."""
+
+    __slots__ = ("_rec", "_name", "_attrs", "_t0")
+
+    def __init__(self, rec: "Recorder", name: str, attrs: Dict[str, int]):
+        self._rec, self._name, self._attrs = rec, name, attrs
+
+    def __enter__(self) -> "_OpenSpan":
+        self._t0 = _clock()
+        return self
+
+    def __exit__(self, *exc) -> bool:
+        self._rec._append(Span(self._name, self._t0, _clock(), self._attrs))
+        return False
+
+
+class Recorder:
+    """Spans of one process, in a ring of ``capacity``: once it is full
+    each new span drops the oldest, and ``dropped`` counts them."""
+
+    def __init__(self, capacity: int = 131072):
+        self._ring: Deque[Span] = collections.deque(maxlen=capacity)
+        self._lock = threading.Lock()
+        self.dropped = 0
+        self._lost_until = float("-inf")  # the latest end of a dropped span
+
+    def _append(self, span: Span) -> None:
+        with self._lock:
+            if len(self._ring) == self._ring.maxlen:
+                self.dropped += 1
+                self._lost_until = max(self._lost_until, self._ring[0].end)
+            self._ring.append(span)
+
+    def span(self, name: str, **attrs: int) -> _OpenSpan:
+        """A context manager recording its block as the span ``name``."""
+        return _OpenSpan(self, name, attrs)
+
+    def add_span(self, name: str, t0: float, t1: float, **attrs: int) -> None:
+        """Records a span whose ends were taken elsewhere (on
+        ``time.monotonic``), such as in two threads."""
+        self._append(Span(name, t0, t1, attrs))
+
+    def spans(self, lo: float = float("-inf"), hi: float = float("inf")) -> List[Span]:
+        """The kept spans that overlap [lo, hi], in the order recorded."""
+        with self._lock:
+            kept = list(self._ring)
+        return [s for s in kept if s.end >= lo and s.start <= hi]
+
+    def intact_since(self, t: float) -> bool:
+        """True when no span that ended at or after ``t`` was dropped."""
+        with self._lock:
+            return self._lost_until < t
+
+
+RECORDER = Recorder()
+span = RECORDER.span
+add_span = RECORDER.add_span
+spans = RECORDER.spans
