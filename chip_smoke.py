@@ -237,7 +237,21 @@ Phases (any failure raises and the script exits non-zero without a result):
     and the seconds of each run. ``--only parity`` runs phases 1, 2
     (nothing to build) and 15 for all three corpora (iemocap 600, casia
     800, emodb 1000 clips).
-16. prints the ``nvidia-smi`` line, a ``kernels`` JSON line (all four
+16. d2v's optimizer and EMA update (``ops/d2v_update.py``) at e2v-base's
+    193 leaves (93.7M parameters, 56.7M in the EMA; f32 moments and EMA,
+    count at the end of warmup, gradients clipped): the kernel's pass
+    against the per-leaf update, given the norm (every leaf bit for bit)
+    and taking its own (within 1e-5 of a leaf's largest value), then timed
+    in turns with it (kernel, per-leaf, per-leaf, kernel): the kernel's
+    device ms (a CUDA graph of its calls; one call moves 3.45 GB, 69x the
+    L2, so every call finds it cold) beside the byte bound, and both ways'
+    call ms (events around eager calls) and host ms a call (no sync inside;
+    the per-leaf update syncs once a leaf, so its host ms is its whole
+    time). Phases 12 and 14 count the kernel's launches on every d2v step
+    (9 an update, 4 given the norm), which the ``kernels`` line sums.
+    ``--only update`` builds d2v_update.cu and runs phases 1, 2 and 16
+    (~30 s).
+17. prints the ``nvidia-smi`` line, a ``kernels`` JSON line (all five
     kernels; the conv entry sums its seven layers' numbers), then the
     result line ``{"ok": true, "device": {...}}`` last.
 """
@@ -362,6 +376,7 @@ from robust_speech_emotion_recognition_via_dynamic_asymmetric_distillation_in_no
     attention,
     conv,
     cuda_build,
+    d2v_update,
     fused_norm,
     norm_probe,
 )
@@ -396,7 +411,7 @@ from robust_speech_emotion_recognition_via_dynamic_asymmetric_distillation_in_no
 
 PORT_PKG = attention.__name__.split(".")[0]
 JAX_PKG = PORT_PKG[: -len("_torch")]
-SOURCES = ("attention", "fused_norm", "conv")  # csrc/<name>.cu
+SOURCES = ("attention", "fused_norm", "conv", "d2v_update")  # csrc/<name>.cu
 # Published H100 SXM peaks (dense): bf16 tensor cores, f32 outside them, HBM3.
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 HBM_BYTES_PER_S = 3.35e12
@@ -2961,6 +2976,10 @@ D2V_HIST_KEYS = ("loss", "d2v_loss", "cls_loss", "target_var", "pred_var")
 # query), so Adam turns rounding noise there into steps of about lr: those
 # slices are held to 2 lr a step instead
 D2V_CPU_CROP, D2V_CPU_B, D2V_CPU_CLONE, D2V_CPU_STEPS = 32000, 2, 2, 2
+# the update kernel's launches an update at e2v-base's 193 leaves: 4 of the
+# sum of squares, the finalize and 4 of the update; the update's 4 alone
+# given the norm (the grid's tensor parallelism)
+UPDATE_LAUNCHES, UPDATE_LAUNCHES_GIVEN_NORM = 9, 4
 
 
 def write_d2v_manifests(manifests: str, out: str) -> dict:
@@ -3119,6 +3138,7 @@ def run_d2v_main(dirs: dict, ckpt: str, out: str) -> dict:
     gc.collect()
     torch.cuda.empty_cache()
     zero_kernel_launches()
+    d2v_update.fused_update.launches = 0
     torch.cuda.reset_peak_memory_stats()
     held_gb = torch.cuda.memory_allocated() / 1e9  # earlier phases' tensors, in the peak
     with D2vProbe(profile=True) as probe:
@@ -3128,11 +3148,15 @@ def run_d2v_main(dirs: dict, ckpt: str, out: str) -> dict:
         run_s = time.perf_counter() - t0
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     launches = kernel_launches()
+    update_launches = d2v_update.fused_update.launches
     if rc != 0:
         raise AssertionError(f"cli d2v-pretrain returned {rc}")
     if any(launches.values()):
         raise AssertionError(f"d2v training launched a kernel: {launches} (the attention "
                              "kernel is forward-only and must stay off a differentiated step)")
+    if update_launches != UPDATE_LAUNCHES * D2V_STEPS:
+        raise AssertionError(f"d2v training: {update_launches} update kernel launches, expected "
+                             f"{UPDATE_LAUNCHES} x {D2V_STEPS} steps")
     if "resident_mb" not in probe.startup:
         raise AssertionError("--resident auto did not engage the resident corpus")
     steps, valid = d2v_history(out)
@@ -3173,7 +3197,7 @@ def run_d2v_main(dirs: dict, ckpt: str, out: str) -> dict:
         teacher_frames_per_step=pcfg.batch_size * frames,
         flops_per_step_derived=flops,
         flops_share_of_bf16_peak=flops["total"] / (median / 1e3) / PEAK_FLOPS[torch.bfloat16],
-        peak_device_gb=peak_gb, held_before_gb=held_gb,
+        peak_device_gb=peak_gb, held_before_gb=held_gb, update_launches=update_launches,
         startup_s=probe.first_step_t - t0, **probe.startup,
         valid_pass_s=probe.valid_s, checkpoint_write_s=probe.ckpt_s, run_s=run_s,
         loss_first=steps[0]["loss"], loss_last=steps[-1]["loss"],
@@ -3347,8 +3371,8 @@ def run_d2v(root: str, manifests: str, ckpt: str) -> dict:
     cpu = d2v_card_against_cpu(dirs["small"], ckpt)
     down = d2v_downstream(out, dirs["valid_files"], dirs["root"])
     print(f"d2v: phase 12 in {time.perf_counter() - t0:.1f} s", flush=True)
-    return dict(launches=down["attention_launches"], main=main_info, agreement=agree,
-                card_cpu=cpu, downstream=down)
+    return dict(launches=down["attention_launches"], update_launches=main_info["update_launches"],
+                main=main_info, agreement=agree, card_cpu=cpu, downstream=down)
 
 
 # ---------------------------------------------------------------------------
@@ -3757,6 +3781,7 @@ def d2v_cli_worker(spec: dict) -> None:
     d2v_models.make_d2v_train_step = timed_factory(d2v_models.make_d2v_train_step)
     d2v_sharded.make_sharded_d2v_step = timed_factory(d2v_sharded.make_sharded_d2v_step)
     zero_kernel_launches()
+    d2v_update.fused_update.launches = 0
     t0 = time.perf_counter()
     rc = cli.main(spec["argv"])
     torch.cuda.synchronize()
@@ -3764,6 +3789,7 @@ def d2v_cli_worker(spec: dict) -> None:
     # step i's entry: its start to step i+1's; steps 2-9
     kept = [a.elapsed_time(b) for a, b in zip(events[1:], events[2:])]
     out = dict(rc=rc, run_s=run_s, mesh=seen, steps=len(events), launches=kernel_launches(),
+               update_launches=d2v_update.fused_update.launches,
                step_ms=float(np.median(kept)), step_ms_range=[min(kept), max(kept)])
     with open(spec["out"], "w") as f:
         json.dump(out, f)
@@ -3806,6 +3832,10 @@ def run_d2v_world1(root: str, dirs: dict, ckpt: str) -> dict:
         raise AssertionError(f"14(a): expected a (1, 1) NCCL mesh, got {nccl['mesh']}")
     if plain["mesh"] or any(any(r["launches"].values()) for r in (plain, nccl)):
         raise AssertionError("14(a): a mesh in the plain run, or a kernel launched by training")
+    if any(r["update_launches"] != UPDATE_LAUNCHES * D2VP_STEPS for r in (plain, nccl)):
+        raise AssertionError(f"14(a): update kernel launches {plain['update_launches']} / "
+                             f"{nccl['update_launches']}, expected {UPDATE_LAUNCHES} x "
+                             f"{D2VP_STEPS} steps each")
     same = {}
     hists = []
     for r in (plain, nccl):
@@ -3822,7 +3852,7 @@ def run_d2v_world1(root: str, dirs: dict, ckpt: str) -> dict:
         raise AssertionError(f"14(a): the world-1 NCCL run differs from the plain run: {same}")
     out = dict(steps=D2VP_STEPS, bit_equal=same,
                **{n: {k: r[k] for k in ("step_ms", "step_ms_range", "steps", "run_s", "wall_s",
-                                        "mesh")} for n, r in runs.items()})
+                                        "mesh", "update_launches")} for n, r in runs.items()})
     print("d2v-parallel: world-1 " + json.dumps(out), flush=True)
     return out
 
@@ -3871,16 +3901,18 @@ def d2v_grid_steps(spec: dict, f32: bool, mesh=None) -> dict:
     gen = torch.Generator("cuda").manual_seed(7)
     metrics = []
     torch.cuda.synchronize()
+    before = d2v_update.fused_update.launches
     t0 = time.perf_counter()
     for _ in range(D2VP_GRID_STEPS):
         state, m = step(state, wav, pad, gen)
         metrics.append({k: float(v) for k, v in m.items()})
     steps_s = time.perf_counter() - t0
+    update_launches = d2v_update.fused_update.launches - before
     if mesh is not None:
         state = gather_d2v_state(state, mesh)
     update = {k: v.float().cpu() - init[k] for k, v in state.params.items()}
     return dict(metrics=metrics, update=update, params=state.params, steps_s=steps_s,
-                lr=pcfg.learning_rate, embed_dim=cfg.embed_dim)
+                lr=pcfg.learning_rate, embed_dim=cfg.embed_dim, update_launches=update_launches)
 
 
 def d2v_update_rel(got: dict, want: dict) -> float:
@@ -3930,6 +3962,7 @@ def d2v_rank_worker(spec: dict) -> None:
         mesh = make_mesh(2, tp=tp, backend="gloo", device="cuda:0")
         run = d2v_grid_steps(spec, f32, mesh)
         out[case] = dict(metrics=run["metrics"], steps_s=run["steps_s"],
+                         update_launches=run["update_launches"],
                          update_rel_diff=d2v_update_rel(run["update"], want["update"]),
                          update_norm=math.sqrt(sum(float(u.norm()) ** 2
                                                    for u in run["update"].values())))
@@ -3983,9 +4016,10 @@ def run_d2v_two_ranks(root: str, dirs: dict, ckpt: str) -> dict:
     spec = dict(ckpt=ckpt, manifests=dirs["dir"], single=f"{root}/d2vp_single.pt",
                 single_f32=f"{root}/d2vp_single_f32.pt", batch=f"{root}/d2vp_batch.pt",
                 encoder=f"{root}/d2vp_encoder.pt")
-    single_metrics, single_s = {}, {}
+    single_metrics, single_s, single_launches = {}, {}, []
     for f32 in (True, False):
         single = d2v_grid_steps(spec, f32)
+        single_launches.append(single["update_launches"])
         torch.save(dict(update=single["update"],
                         params={k: v.float().cpu() for k, v in single["params"].items()}),
                    spec["single_f32" if f32 else "single"])
@@ -4017,6 +4051,17 @@ def run_d2v_two_ranks(root: str, dirs: dict, ckpt: str) -> dict:
     # roundings into steps apart where a gradient is near 0
     crit = {"21": TRAINER_REL_TOL, "12": TRAINER_REL_TOL,
             "f32_21": PRETRAIN_CARD_CPU_TOL, "f32_12": PRETRAIN_CARD_CPU_TOL}
+    # the update kernel on every step: the norm taken over the (dp-summed)
+    # gradients, or given by the ranks at tp 2
+    want_updates = [D2VP_GRID_STEPS * (UPDATE_LAUNCHES_GIVEN_NORM if case.endswith("12")
+                                       else UPDATE_LAUNCHES) for case in crit]
+    update_launches = [[r[case]["update_launches"] for case in crit] for r in got]
+    if single_launches != [D2VP_GRID_STEPS * UPDATE_LAUNCHES] * 2 or any(
+            lc != want_updates for lc in update_launches):
+        errors.append(f"update kernel launches: one process {single_launches}, ranks "
+                      f"{update_launches} (cases {list(crit)}), expected "
+                      f"{D2VP_GRID_STEPS * UPDATE_LAUNCHES} and {want_updates}")
+    out["update_launches"] = dict(single=single_launches, ranks=update_launches)
     for case, tol in crit.items():
         g = got[0][case]
         want = single_metrics[case.startswith("f32")]
@@ -4063,7 +4108,8 @@ def run_d2v_two_ranks(root: str, dirs: dict, ckpt: str) -> dict:
     print("d2v-parallel: two ranks " + json.dumps(out), flush=True)
     if errors:
         raise AssertionError("14: " + "; ".join(errors))
-    return dict(launches=sum(lc["flash_attention"] for lc in launches), **out)
+    return dict(launches=sum(lc["flash_attention"] for lc in launches),
+                update_launches_sum=sum(single_launches) + sum(map(sum, update_launches)), **out)
 
 
 def run_d2v_parallel(root: str, manifests: str, ckpt: str) -> dict:
@@ -4074,7 +4120,10 @@ def run_d2v_parallel(root: str, manifests: str, ckpt: str) -> dict:
     b = run_d2v_two_ranks(root, dirs, ckpt)
     seconds = time.perf_counter() - t0
     print(f"d2v-parallel: phase 14 in {seconds:.1f} s", flush=True)
-    return dict(launches=b["launches"], world1=a, two_ranks=b, seconds=seconds)
+    update_launches = a["plain"]["update_launches"] + a["nccl_world1"]["update_launches"] + \
+        b["update_launches_sum"]
+    return dict(launches=b["launches"], update_launches=update_launches, world1=a, two_ranks=b,
+                seconds=seconds)
 
 
 def run_stage1_and_fused(only_fused: bool = False, experiments: bool = True,
@@ -4380,6 +4429,120 @@ def run_parity_phase(corpora=("iemocap",)) -> list:
     return [run_parity_corpus(c) for c in corpora]
 
 
+# phase 16: the kernel's update against the per-leaf one after one step
+# from one state. Both compute the same f32 operations on the same scalars:
+# given the norm, the four states agree bit for bit. Taking their own norms
+# they sum in other orders, and the gradients are clipped, so each element
+# parts by a few f32 ulps at most (the card tests hold 3 steps to 1e-5 of
+# each leaf's largest value)
+UPDATE_STATE_TOL = 1e-5
+
+
+def update_states(a, b) -> list:
+    """(name, a's leaves, b's leaves) of two d2v states' four parts."""
+    return [("params", a.params, b.params), ("mu", a.opt_state.mu, b.opt_state.mu),
+            ("nu", a.opt_state.nu, b.opt_state.nu), ("ema", a.ema_blocks, b.ema_blocks)]
+
+
+def update_case(device) -> tuple:
+    """e2v-base's d2v leaves at the benchmark's types (f32 moments and EMA),
+    seeded, count and step at the end of warmup, and a gradient of N(0, 1)
+    entries (norm ~9.7e3, clipped at 4): (pcfg, tx, state, grads)."""
+    pcfg = D2vPretrainConfig()
+    with torch.device("meta"):
+        shapes = {k: v.shape for k, v in
+                  d2v_models.D2vPretrainModel(EncoderConfig(), pcfg).state_dict().items()}
+    gen = torch.Generator(device=device).manual_seed(16)
+
+    def draw(scale):
+        return {k: torch.randn(s, generator=gen, device=device) * scale
+                for k, s in shapes.items()}
+
+    params, mu = draw(0.05), draw(0.01)
+    nu = {k: v * v for k, v in draw(0.01).items()}
+    ema = {k: e + 0.01 * torch.randn(e.shape, generator=gen, device=device)
+           for k, e in init_ema_blocks(params, EncoderConfig(), pcfg).items()}
+    count = torch.full((), pcfg.warmup_steps, dtype=torch.int32, device=device)
+    state = d2v_models.D2vTrainState(params, ema, d2v_models.D2vAdamState(count, mu, nu),
+                                     count.clone())
+    return pcfg, d2v_models.build_d2v_optimizer(pcfg), state, draw(1.0)
+
+
+def run_update_phase() -> dict:
+    """Phase 16: the kernel's optimizer and EMA update against the
+    per-leaf one, then both timed in turns."""
+    t0 = time.perf_counter()
+    pcfg, tx, state, grads = update_case(torch.device("cuda"))
+    n = sum(p.numel() for p in state.params.values())
+    n_ema = sum(e.numel() for e in state.ema_blocks.values())
+    # each byte once: g, p, mu, nu read, p, mu, nu written, the EMA both ways
+    # (the norm's pass reads g a second time: 4 B more a parameter)
+    nbytes = 28 * n + 8 * n_ema
+
+    def kernel(norm=None):
+        return d2v_models.optimizer_and_ema(tx, pcfg, state, state.params, grads, norm)
+
+    def plain(norm=None):
+        return d2v_models.optimizer_and_ema_per_leaf(tx, pcfg, state, state.params, grads, norm)
+
+    def same_scalars(got, want, d_got, d_want):
+        if not torch.equal(d_got, d_want) or int(got.step) != int(want.step) or int(
+                got.opt_state.count) != int(want.opt_state.count):
+            raise AssertionError("update kernel: the decay, step or count differs from the "
+                                 "per-leaf update")
+
+    # given the norm: every leaf of the four states bit for bit
+    norm = torch.sqrt(sum(torch.sum(g * g) for g in grads.values()))
+    before = d2v_update.fused_update.launches
+    (got, d_got), (want, d_want) = kernel(norm), plain(norm)
+    launches_given = d2v_update.fused_update.launches - before
+    same_scalars(got, want, d_got, d_want)
+    differ = {what: [k for k, w in b.items() if not torch.equal(a[k], w)]
+              for what, a, b in update_states(got, want)}
+    if any(differ.values()):
+        raise AssertionError("update kernel given the norm: leaves differ from the per-leaf "
+                             f"update: { {k: v[:3] for k, v in differ.items() if v} }")
+    # its own norm
+    before = d2v_update.fused_update.launches
+    (got, d_got), (want, d_want) = kernel(), plain()
+    launches = d2v_update.fused_update.launches - before
+    same_scalars(got, want, d_got, d_want)
+    if (launches, launches_given) != (UPDATE_LAUNCHES, UPDATE_LAUNCHES_GIVEN_NORM):
+        raise AssertionError(f"update kernel: {launches} launches an update, "
+                             f"{launches_given} given the norm")
+    worst = 0.0
+    for what, a, b in update_states(got, want):
+        errs = torch.stack([(a[k] - w).abs().max() / w.abs().max() for k, w in b.items()])
+        rel = float(errs.max())
+        if not rel <= UPDATE_STATE_TOL:
+            raise AssertionError(f"update kernel: {what} parts from the per-leaf update by "
+                                 f"{rel:.3e} of a leaf's largest value")
+        worst = max(worst, rel)
+    del got, want
+    torch.cuda.synchronize()
+    b, by = bound(nbytes, 0, F32_OPS_PER_S)
+    turns = {}
+    for what, fn in (("device_ms_cold", lambda f: timing.device_ms([f], cold=True, launches=4)),
+                     ("call_ms", lambda f: timing.call_ms(f, iters=10)),
+                     ("host_ms", lambda f: timing.host_us(f, iters=10) / 1e3)):
+        if what == "device_ms_cold":  # the per-leaf update syncs: no graph captures it
+            k1, k2 = fn(kernel), fn(kernel)
+            turns[what], turns[f"{what}_turns"] = (k1 + k2) / 2, [k1, k2]
+            continue
+        k1, p1, p2, k2 = fn(kernel), fn(plain), fn(plain), fn(kernel)
+        turns[what], turns[f"plain_{what}"] = (k1 + k2) / 2, (p1 + p2) / 2
+        turns[f"{what}_turns"] = [k1, p1, p2, k2]
+    row = dict(kernel="d2v_update", leaves=len(state.params), params=n, ema_params=n_ema,
+               launches_per_update=launches, launches_given_norm=launches_given,
+               bit_equal_given_norm=True, max_rel_err=worst, ms=turns["device_ms_cold"],
+               plain_ms=turns["plain_call_ms"], bound_ms=b, bound_by=by,
+               bound_with_norm_pass_ms=(nbytes + 4 * n) / HBM_BYTES_PER_S * 1e3,
+               share_of_bound=b / turns["device_ms_cold"], **turns,
+               seconds=time.perf_counter() - t0)
+    print("update: " + json.dumps(row), flush=True)
+    return dict(row, max_abs_err=worst, library_ms=None)
+
+
 T_START = time.perf_counter()
 
 
@@ -4391,7 +4554,7 @@ def elapsed(phase: str) -> None:
 def parse_args(argv=None) -> argparse.Namespace:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--only", choices=("attention", "conv", "trainer", "fused", "preprocess",
-                                      "experiments", "d2v", "parallel", "d2v-parallel",
+                                      "experiments", "d2v", "parallel", "d2v-parallel", "update",
                                       "parity"),
                    help="attention: build and run phases 1-3 only; conv: build conv.cu and "
                         "run phases 1, 2 and 6, then the conv grid comparison (to time two "
@@ -4404,7 +4567,8 @@ def parse_args(argv=None) -> argparse.Namespace:
                         "1, 2 and 12 on phase 9's corpus and checkpoint; "
                         "parallel: build attention.cu, write phase 9's corpus and run phases "
                         "1, 2 and 13; d2v-parallel: the same with phase 14; parity: build "
-                        "nothing, run phase 15 for all three corpora")
+                        "nothing, run phase 15 for all three corpora; update: build "
+                        "d2v_update.cu and run phases 1, 2 and 16")
     p.add_argument("--worker", default=None, help=argparse.SUPPRESS)
     return p.parse_args(argv)
 
@@ -4430,8 +4594,9 @@ def main(argv=None) -> int:
 
     sources = {None: SOURCES, "trainer": (), "parity": (), "fused": ("attention",),
                "preprocess": ("attention",), "experiments": ("attention",),
-               "d2v": ("attention",), "parallel": ("attention",),
-               "d2v-parallel": ("attention",)}.get(args.only, (args.only,))
+               "d2v": ("attention", "d2v_update"), "parallel": ("attention",),
+               "d2v-parallel": ("attention", "d2v_update"),
+               "update": ("d2v_update",)}.get(args.only, (args.only,))
     t0 = time.perf_counter()
     if sources:
         with concurrent.futures.ThreadPoolExecutor(len(sources)) as pool:
@@ -4453,6 +4618,8 @@ def main(argv=None) -> int:
                              fused=args.only not in ("d2v", "parallel", "d2v-parallel"),
                              parallel=args.only == "parallel",
                              d2v_parallel=args.only == "d2v-parallel")
+    elif args.only == "update":
+        run_update_phase()
     elif args.only == "conv":
         # the serving slice's encoder weights and the training slice's noisy batch
         enc_cfg = EncoderConfig(dtype="bfloat16", use_flash_attention=True)
@@ -4486,6 +4653,8 @@ def main(argv=None) -> int:
     fused, pre, exp, d2v_info, par, d2vp = run_stage1_and_fused()
     elapsed("phase 15")
     run_parity_phase()
+    elapsed("phase 16")
+    update = run_update_phase()
 
     def entry(name, source, replaces, launches, r):
         return dict(name=name, route="cuda", source=f"{PORT_PKG}/csrc/{source}",
@@ -4512,6 +4681,8 @@ def main(argv=None) -> int:
               conv_info["launches"], front),
         entry("copy_rows", "fused_norm.cu", "tools/bench_fused_norm.py:133",
               norm["launches"]["copy_rows"], norm["rows"][("copy", torch.bfloat16)]),
+        entry("d2v_update", "d2v_update.cu", "none (optax's update, which XLA fuses)",
+              d2v_info["update_launches"] + d2vp["update_launches"], update),
     ]
     print(f"total: {time.perf_counter() - T_START:.1f} s", flush=True)
     print(smi)

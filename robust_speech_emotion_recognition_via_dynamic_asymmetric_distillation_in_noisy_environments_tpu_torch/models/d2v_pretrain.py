@@ -15,7 +15,9 @@ function:
   restoration;
 - AdamW with global-norm clipping and optax's warmup-cosine schedule, as a
   functional optimizer that rounds as optax does; the EMA in f32 whatever
-  its storage dtype.
+  its storage dtype. On the card both run as one multi-tensor kernel pass
+  (``optimizer_and_ema``, ``ops/d2v_update.py``) that repeats the per-leaf
+  code's arithmetic.
 
 State is plain dicts of tensors keyed as ``D2vPretrainModel.state_dict()``
 (``torch.func.functional_call`` runs the model on them). The student's
@@ -49,6 +51,7 @@ from torch import nn
 from torch.func import functional_call
 
 from ..configs import D2vPretrainConfig, EncoderConfig
+from ..ops.d2v_update import Hyper, fused_update
 from ..utils import profiling
 from .d2v_masking import (
     apply_mask,
@@ -385,6 +388,13 @@ class D2vOptimizer:
             lr = torch.where(c < self.warmup, (0.0 - self.peak) * frac + self.peak, lr)
         return lr
 
+    def schedule(self, count: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+        """The step's scalars from the pre-increment count: (count + 1, c1,
+        c2, -lr), the bias corrections at the incremented count and the
+        learning rate at the pre-increment one."""
+        n = count + 1
+        return n, 1 - self.b1 ** n.float(), 1 - self.b2 ** n.float(), -self.learning_rate(count)
+
     def init(self, params: Params) -> D2vAdamState:
         device = next(iter(params.values())).device
         return D2vAdamState(
@@ -409,10 +419,7 @@ class D2vOptimizer:
             m = state.mu[k]
             mu[k] = (1 - b1) * g + torch.tensor(b1, dtype=m.dtype, device=m.device) * m
         nu = {k: (1 - b2) * (g * g) + b2 * state.nu[k] for k, g in grads.items()}
-        count = state.count + 1
-        c1 = 1 - b1 ** count.float()
-        c2 = 1 - b2 ** count.float()
-        step = -self.learning_rate(state.count)
+        count, c1, c2, step = self.schedule(state.count)
         updates = {k: step * ((mu[k] / c1) / (torch.sqrt(nu[k] / c2) + self.eps)
                               + self.weight_decay * params[k]) for k in grads}
         if self.mu_dtype is not None:
@@ -422,6 +429,43 @@ class D2vOptimizer:
 
 def build_d2v_optimizer(pcfg: D2vPretrainConfig) -> D2vOptimizer:
     return D2vOptimizer(pcfg)
+
+
+def optimizer_and_ema_per_leaf(tx: D2vOptimizer, pcfg: D2vPretrainConfig, state: D2vTrainState,
+                               params: Params, grads: Dict[str, Optional[torch.Tensor]],
+                               norm: Optional[torch.Tensor] = None
+                               ) -> Tuple[D2vTrainState, torch.Tensor]:
+    """``optimizer_and_ema`` leaf by leaf on any device: the plain version
+    that the CPU runs and the card tests hold the kernel to."""
+    grads = {k: torch.zeros_like(params[k]) if g is None else g for k, g in grads.items()}
+    updates, opt_state = tx.update(grads, state.opt_state, params, norm)
+    params = {k: p + updates[k] for k, p in params.items()}
+    decay = annealed_decay(pcfg, state.step)
+    # EMA arithmetic in f32 whatever the storage dtype
+    ema = {k: (decay * e.float() + (1.0 - decay) * params[k].float()).to(e.dtype)
+           for k, e in state.ema_blocks.items()}
+    return D2vTrainState(params, ema, opt_state, state.step + 1), decay
+
+
+def optimizer_and_ema(tx: D2vOptimizer, pcfg: D2vPretrainConfig, state: D2vTrainState,
+                      params: Params, grads: Dict[str, Optional[torch.Tensor]],
+                      norm: Optional[torch.Tensor] = None) -> Tuple[D2vTrainState, torch.Tensor]:
+    """The optimizer step and the EMA update of ``state`` from the
+    gradients at ``params`` (its detached leaves; None for a leaf without a
+    gradient, read as zeros) -> (the next state, the EMA decay used). For
+    CUDA tensors one multi-tensor kernel pass (``ops/d2v_update.py``) over
+    the scalars the per-leaf code computes, with no host-device sync; for
+    CPU tensors ``optimizer_and_ema_per_leaf``. ``norm``: as
+    ``D2vOptimizer.update``'s. ``state`` is not written."""
+    if not next(iter(params.values())).is_cuda:
+        return optimizer_and_ema_per_leaf(tx, pcfg, state, params, grads, norm)
+    count, c1, c2, neg_lr = tx.schedule(state.opt_state.count)
+    decay = annealed_decay(pcfg, state.step)
+    p, mu, nu, ema = fused_update(
+        params, grads, state.opt_state.mu, state.opt_state.nu, state.ema_blocks,
+        Hyper(tx.b1, tx.b2, tx.eps, tx.weight_decay, tx.max_norm), tx.mu_dtype or torch.float32,
+        neg_lr, c1, c2, decay, norm)
+    return D2vTrainState(p, ema, D2vAdamState(count, mu, nu), state.step + 1), decay
 
 
 def init_d2v_state(cfg: EncoderConfig, pcfg: D2vPretrainConfig,
@@ -638,7 +682,8 @@ def d2v_update(model: D2vPretrainModel, tx: D2vOptimizer, loss_fn, state: D2vTra
     """One update: the loss, its gradient, the optimizer and the EMA.
     The process grid's step (``parallel/d2v_sharded.py``) gives its
     ``cut``, the sum of the gradients over dp (``reduce_grads``) and the
-    global norm of sharded gradients (``grad_norm``). Spans
+    global norm of sharded gradients (``grad_norm``, given with
+    ``reduce_grads``). Spans
     ``d2v_pretrain.loss`` (the loss and its gradient) and
     ``d2v_pretrain.update`` (the optimizer and the EMA) time their issue."""
     with profiling.span("d2v_pretrain.loss"):
@@ -647,20 +692,15 @@ def d2v_update(model: D2vPretrainModel, tx: D2vOptimizer, loss_fn, state: D2vTra
         grads = torch.autograd.grad(total, list(leaves.values()), allow_unused=True)
     with profiling.span("d2v_pretrain.update"), torch.no_grad():
         params = {k: v.detach() for k, v in leaves.items()}
-        grads = {k: torch.zeros_like(params[k]) if g is None else g
-                 for k, g in zip(leaves, grads)}
+        grads = dict(zip(leaves, grads))
         if reduce_grads is not None:
-            grads = reduce_grads(grads)
+            grads = reduce_grads({k: torch.zeros_like(params[k]) if g is None else g
+                                  for k, g in grads.items()})
         norm = None if grad_norm is None else grad_norm(grads)
-        updates, opt_state = tx.update(grads, state.opt_state, params, norm)
-        params = {k: p + updates[k] for k, p in params.items()}
-        decay = annealed_decay(model.pcfg, state.step)
-        # EMA arithmetic in f32 whatever the storage dtype
-        ema = {k: (decay * e.float() + (1.0 - decay) * params[k].float()).to(e.dtype)
-               for k, e in state.ema_blocks.items()}
+        state, decay = optimizer_and_ema(tx, model.pcfg, state, params, grads, norm)
     metrics = {k: v.detach() for k, v in metrics.items()}
     metrics["ema_decay"] = decay
-    return D2vTrainState(params, ema, opt_state, state.step + 1), metrics
+    return state, metrics
 
 
 def make_d2v_train_step(model: D2vPretrainModel, tx: D2vOptimizer):
