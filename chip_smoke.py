@@ -24,8 +24,15 @@ Phases (any failure raises and the script exits non-zero without a result):
    scaled_dot_product_attention (a yardstick only: the port never calls
    it) with the measures of phase 5 below, the plain version's call ms,
    and computes the bound; then the kernel against plain on a tensor-parallel
-   rank's heads (H 6 and 3, the rank's own qkv views). ``--only attention``
-   stops after this phase.
+   rank's heads (H 6 and 3, the rank's own qkv views). Then WavLM's biased
+   kernel (``rel_bias``) at serving's 30 s bucket (B 16, H 16, N 1499,
+   bf16, the encoder's views) against the plain version with the bias
+   materialised, which the unbiased kernel on the same inputs must fail;
+   timed in turns with the unbiased kernel, beside the plain version's call
+   ms and the bound; and one WavLM Large batch of 16 clips (3-30 s, seeded
+   random weights in transformers' key names) through ``FeatureExtractor``:
+   24 launches, all biased, and its features against the plain attention
+   path's. ``--only attention`` stops after this phase.
 4. the slice: full-width emotion2vec-base (768-d, 12 heads, 4 prenet + 8
    blocks, 7-layer conv front end, 5-layer positional conv) from seeded
    random weights in the fairseq layout, bf16, attention through the
@@ -252,7 +259,8 @@ Phases (any failure raises and the script exits non-zero without a result):
     ``--only update`` builds d2v_update.cu and runs phases 1, 2 and 16
     (~30 s).
 17. prints the ``nvidia-smi`` line, a ``kernels`` JSON line (all five
-    kernels; the conv entry sums its seven layers' numbers), then the
+    kernels, the attention kernel's biased variant a sixth entry; the conv
+    entry sums its seven layers' numbers), then the
     result line ``{"ok": true, "device": {...}}`` last.
 """
 
@@ -293,6 +301,7 @@ from robust_speech_emotion_recognition_via_dynamic_asymmetric_distillation_in_no
     EncoderConfig,
     dad_preset,
     pretrain_preset,
+    wavlm_large_config,
 )
 from robust_speech_emotion_recognition_via_dynamic_asymmetric_distillation_in_noisy_environments_tpu_torch.dad import (
     StepScalars,
@@ -337,6 +346,7 @@ from robust_speech_emotion_recognition_via_dynamic_asymmetric_distillation_in_no
 )
 from robust_speech_emotion_recognition_via_dynamic_asymmetric_distillation_in_noisy_environments_tpu_torch.models.convert import (
     fairseq_to_torch_encoder,
+    hf_wavlm_to_torch_encoder,
     load_emotion2vec_checkpoint,
     load_pretrain_head_checkpoint,
     load_torch_file,
@@ -419,6 +429,8 @@ HBM_BYTES_PER_S = 3.35e12
 # package's kernel test); bf16 by two bf16 ulps, since the plain version
 # rounds p after normalising and the kernel before (online softmax)
 ATTN_TOL = {torch.float32: (2e-5, 0.0), torch.bfloat16: (2e-2, 1.6e-2)}
+# WavLM Large at serving's 30 s bucket: the biased kernel's checked shape
+RELBIAS_B, RELBIAS_H, RELBIAS_N = 16, 16, 1499
 # serving logits, kernel path vs plain-attention path, both bf16 end to end:
 # the plain path rounds scores to bf16 (einsum output), the kernel keeps f32
 LOGIT_TOL_BF16 = 0.1
@@ -645,9 +657,165 @@ def run_attention_phase() -> dict:
             r = check_attention_kernel(N, dtype, clocks, B=B)
             results[(dtype, N, B)] = r
             print("kernel: " + json.dumps(r), flush=True)
+        relbias = check_relbias_kernel(clocks)
     print(f"kernel: attention phase clocks {clocks.summary()}", flush=True)
     print("kernel: tensor-parallel heads " + json.dumps(check_rank_heads()), flush=True)
+    relbias.update(check_wavlm_batch())
+    print("kernel: relbias " + json.dumps(relbias), flush=True)
+    results["relbias"] = relbias
     return results
+
+
+def relbias_operands(B, H, N, gen: torch.Generator) -> tuple:
+    """The encoder's bf16 q (pre-scaled), k, v views, a (H, 2N - 1) f32
+    table of N(0, 1) (the configuration's draw of WavLM's bucket
+    embedding) and the (B, H, N) f32 gate as the transpose view of a (B, N,
+    H) buffer, in [1, 3), its range in WavLM."""
+    q, k, v = attention_operands(B, H, N, 64, torch.bfloat16, "encoder", gen)
+    table = torch.randn(H, 2 * N - 1, generator=gen, device="cuda")
+    gate = (1 + 2 * torch.rand(B, N, H, generator=gen, device="cuda")).transpose(1, 2)
+    return q, k, v, table, gate
+
+
+def check_relbias_kernel(clocks: timing.ClockSampler) -> dict:
+    """The biased kernel at (RELBIAS_B, RELBIAS_H, RELBIAS_N, 64) bf16 on the
+    encoder's views, with the phase's mask (suffix padding, one unpadded
+    and one fully padded item), against the plain version with the bias
+    materialised, to the unbiased kernel's bf16 tolerance; the unbiased
+    kernel on the same inputs must fail that tolerance, so that a kernel
+    that dropped the bias could not pass. Then timed in turns with the
+    unbiased kernel on the same sets (biased, unbiased, unbiased, biased)
+    by phase 5's measures; the plain version's call ms; the bound, with
+    the gate's and the table's bytes."""
+    t0 = time.perf_counter()
+    B, H, N = RELBIAS_B, RELBIAS_H, RELBIAS_N
+    mask = attention_mask(B, N, seed=N)
+    gen = torch.Generator(device="cuda").manual_seed(N + 1)
+    sets = [relbias_operands(B, H, N, gen)
+            for _ in range(timing.rotation(4 * B * H * N * 64 * 2))]
+    q, k, v, table, gate = sets[0]
+    fa = attention.flash_attention
+    before = (fa.launches, fa.biased_launches)
+    out = fa(q, k, v, mask, rel_bias=(table, gate))
+    torch.cuda.synchronize()
+    if (fa.launches - before[0], fa.biased_launches - before[1]) != (1, 1):
+        raise AssertionError("relbias kernel: a biased call was not counted as one biased "
+                             "launch")
+    ref = attention.flash_attention_reference(q, k, v, mask, rel_bias=(table, gate))
+    err = attention_error(out, ref, mask, f"relbias B={B}, H={H}, N={N}, bf16")
+    rows = (~mask).any(dim=1)
+    atol, rtol = ATTN_TOL[torch.bfloat16]
+    gap = (fa(q, k, v, mask)[rows].float() - ref[rows].float()).abs()
+    if bool((gap <= atol + rtol * ref[rows].float().abs()).all()):
+        raise AssertionError("relbias kernel: the unbiased kernel meets the biased plain "
+                             "version's tolerance, so the check cannot see the bias")
+    unbiased_err = float(gap.max())
+    del out, ref, gap
+    times = in_turns([lambda s=s: fa(*s[:3], mask, rel_bias=s[3:]) for s in sets],
+                     [lambda s=s: fa(*s[:3], mask) for s in sets])
+    plain = timing.call_ms(lambda: attention.flash_attention_reference(
+        q, k, v, mask, rel_bias=(table, gate)), iters=5, warmup=1)
+    valid_keys = int((~mask).sum())
+    nbytes = 4 * q.numel() * q.element_size() + mask.numel() + 4 * (gate.numel() + table.numel())
+    b, by = bound(nbytes, 4.0 * H * N * 64 * valid_keys, PEAK_FLOPS[torch.bfloat16])
+    del sets, q, k, v, table, gate
+    torch.cuda.empty_cache()
+    return dict(B=B, H=H, N=N, dtype="bfloat16", valid_keys=valid_keys, max_abs_err=err,
+                unbiased_max_err=unbiased_err, ms=times["device_ms_cold"],
+                unbiased_ms=times["library_device_ms_cold"],
+                ratio=times["device_ms_cold"] / times["library_device_ms_cold"],
+                plain_ms=plain, bound_ms=b, bound_by=by, library_ms=None,
+                turns=times["device_ms_cold_turns"], **{
+                    k: times[k] for k in ("device_ms_warm", "call_ms", "host_us")},
+                clocks=clocks.summary(t0, time.perf_counter()))
+
+
+def random_wavlm_state_dict(cfg: EncoderConfig, seed: int) -> dict:
+    """Seeded random WavLM weights in transformers' key names (the plain
+    positional conv weight, not its weight norm), drawn as the benchmark's
+    configuration draws them: weights N(0, 1 / fan_in), biases and shifts
+    N(0, 0.06^2), scales and the gate constants 1 + N(0, 0.06^2), the
+    bucket embedding and the layer weights N(0, 1)."""
+    g = torch.Generator().manual_seed(seed)
+    E, H, hid = cfg.embed_dim, cfg.num_heads, int(cfg.embed_dim * cfg.mlp_ratio)
+    sd = {}
+
+    def w(name, *shape):
+        sd[name] = torch.randn(*shape, generator=g) * math.prod(shape[1:]) ** -0.5
+
+    def vec(name, n, offset=0.0):
+        sd[name] = offset + 0.06 * torch.randn(n, generator=g)
+
+    in_c = 1
+    for i, (dim, k, _s) in enumerate(cfg.conv_feature_layers):
+        w(f"feature_extractor.conv_layers.{i}.conv.weight", dim, in_c, k)
+        vec(f"feature_extractor.conv_layers.{i}.layer_norm.weight", dim, 1.0)
+        vec(f"feature_extractor.conv_layers.{i}.layer_norm.bias", dim)
+        in_c = dim
+    vec("feature_projection.layer_norm.weight", in_c, 1.0)
+    vec("feature_projection.layer_norm.bias", in_c)
+    w("feature_projection.projection.weight", E, in_c)
+    vec("feature_projection.projection.bias", E)
+    w("encoder.pos_conv_embed.conv.weight", E, E // cfg.conv_pos_groups, cfg.conv_pos_width)
+    vec("encoder.pos_conv_embed.conv.bias", E)
+    sd["encoder.layers.0.attention.rel_attn_embed.weight"] = torch.randn(
+        cfg.num_buckets, H, generator=g)
+    for i in range(cfg.depth):
+        pre = f"encoder.layers.{i}"
+        for n in ("q", "k", "v", "out"):
+            w(f"{pre}.attention.{n}_proj.weight", E, E)
+            vec(f"{pre}.attention.{n}_proj.bias", E)
+        w(f"{pre}.attention.gru_rel_pos_linear.weight", 8, E // H)
+        vec(f"{pre}.attention.gru_rel_pos_linear.bias", 8)
+        sd[f"{pre}.attention.gru_rel_pos_const"] = 1 + 0.06 * torch.randn(1, H, 1, 1, generator=g)
+        for n in ("layer_norm", "final_layer_norm"):
+            vec(f"{pre}.{n}.weight", E, 1.0)
+            vec(f"{pre}.{n}.bias", E)
+        w(f"{pre}.feed_forward.intermediate_dense.weight", hid, E)
+        vec(f"{pre}.feed_forward.intermediate_dense.bias", hid)
+        w(f"{pre}.feed_forward.output_dense.weight", E, hid)
+        vec(f"{pre}.feed_forward.output_dense.bias", E)
+    vec("encoder.layer_norm.weight", E, 1.0)
+    vec("encoder.layer_norm.bias", E)
+    sd["layer_weights"] = torch.randn(cfg.depth + 1, generator=g)
+    return sd
+
+
+def check_wavlm_batch() -> dict:
+    """One batch of 16 clips (3-30 s, so the 30 s bucket: N 1499) through
+    WavLM Large's ``FeatureExtractor`` (bf16, attention through the kernel)
+    with both launch counters zeroed: every one of the 24 layers launches
+    the biased kernel and nothing else launches; then the same batch
+    through the plain attention path, each clip's features held to it by
+    the norm of their difference over the plain ones' norm. Both paths
+    score and add the bias in f32; they part where the plain version
+    rounds p after normalising and the kernel before, through 24 layers:
+    phase 9's reason, and its bound."""
+    t0 = time.perf_counter()
+    cfg = wavlm_large_config(dtype="bfloat16")
+    sd = hf_wavlm_to_torch_encoder(random_wavlm_state_dict(cfg, seed=18), cfg)
+    rng = np.random.default_rng(18)
+    lengths = [30 * SAMPLE_RATE] + sorted(rng.integers(3 * SAMPLE_RATE, 30 * SAMPLE_RATE, 15))
+    clips = [synthetic_clip(int(n), seed=i) for i, n in enumerate(lengths)]
+    ex = FeatureExtractor(cfg, sd, batch_size=16)
+    attention.flash_attention.launches = attention.flash_attention.biased_launches = 0
+    feats = ex.extract_clips(clips)
+    launches = (attention.flash_attention.launches, attention.flash_attention.biased_launches)
+    if launches != (cfg.depth, cfg.depth):
+        raise AssertionError(f"WavLM batch: {launches[0]} attention launches, {launches[1]} "
+                             f"biased, where each of the {cfg.depth} layers launches one "
+                             "biased kernel")
+    del ex
+    torch.cuda.empty_cache()
+    plain = FeatureExtractor(dataclasses.replace(cfg, use_flash_attention=False), sd,
+                             batch_size=16).extract_clips(clips)
+    rel = max(float(np.linalg.norm(a - b) / np.linalg.norm(b)) for a, b in zip(feats, plain))
+    if not rel <= FEAT_REL_TOL_BF16:
+        raise AssertionError(f"WavLM batch: features part from the plain attention path's by "
+                             f"{rel:.3e} of their norm (tolerance {FEAT_REL_TOL_BF16})")
+    torch.cuda.empty_cache()
+    return dict(wavlm_launches=launches[1], wavlm_feat_rel_err=rel,
+                wavlm_seconds=time.perf_counter() - t0)
 
 
 def check_rank_heads() -> dict:
@@ -4683,6 +4851,9 @@ def main(argv=None) -> int:
               norm["launches"]["copy_rows"], norm["rows"][("copy", torch.bfloat16)]),
         entry("d2v_update", "d2v_update.cu", "none (optax's update, which XLA fuses)",
               d2v_info["update_launches"] + d2vp["update_launches"], update),
+        entry("flash_attention_relbias", "attention.cu",
+              "none (the JAX package has no WavLM)", attn["relbias"]["wavlm_launches"],
+              attn["relbias"]),
     ]
     print(f"total: {time.perf_counter() - T_START:.1f} s", flush=True)
     print(smi)

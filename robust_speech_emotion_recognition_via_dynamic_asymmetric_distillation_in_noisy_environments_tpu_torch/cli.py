@@ -181,20 +181,20 @@ def _add_stage1_parsers(sub) -> None:
 
 
 def _cmd_serve(args):
-    from .configs import dad_preset
+    from .configs import dad_preset, encoder_config
     from .eval.serving import EmotionPredictor, PredictionServer
     from .models.convert import load_torch_file, torch_state_dict_to_ssrl
 
-    cfg = dad_preset(args.corpus)
+    # the head reads the encoder's features: its input is the encoder's width
+    enc_cfg = encoder_config(args.encoder_json, dtype=args.encoder_dtype)
+    cfg = dad_preset(args.corpus, input_dim=enc_cfg.embed_dim)
     ssrl = torch_state_dict_to_ssrl(load_torch_file(args.weights))
     extractor = None
     if args.checkpoint:
-        from .configs import encoder_config
-        from .models.convert import load_emotion2vec_checkpoint
+        from .models.convert import load_encoder_checkpoint
         from .models.extract import FeatureExtractor
 
-        enc_cfg = encoder_config(dtype=args.encoder_dtype)
-        state = load_emotion2vec_checkpoint(args.checkpoint, enc_cfg)
+        state = load_encoder_checkpoint(args.checkpoint, enc_cfg)
         extractor = FeatureExtractor(
             enc_cfg, state, batch_size=args.max_batch, device=args.device
         )
@@ -798,7 +798,11 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--corpus", choices=["iemocap", "casia", "emodb"],
                    default="iemocap", help="label set / preset")
     p.add_argument("--checkpoint", default=None,
-                   help="emotion2vec checkpoint: enables raw-wav requests")
+                   help="encoder checkpoint (fairseq emotion2vec, or transformers WavLM with "
+                        "--encoder-json '{\"arch\": \"wavlm\"}'): enables raw-wav requests")
+    p.add_argument("--encoder-json", default=None,
+                   help="EncoderConfig overrides as inline JSON or a JSON file "
+                        "(\"arch\": \"wavlm\" starts from WavLM Large)")
     p.add_argument("--encoder-dtype", default="bfloat16")
     p.add_argument("--wav-dtype", choices=["int16", "float32"],
                    default="int16",

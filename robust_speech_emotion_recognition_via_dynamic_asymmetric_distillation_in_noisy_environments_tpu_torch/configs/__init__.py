@@ -10,6 +10,7 @@ from .base import (
     apply_overrides,
     encoder_config,
     load_encoder_json,
+    wavlm_large_config,
 )
 from .presets import (
     CORPUS_PRESETS,
@@ -29,6 +30,7 @@ __all__ = [
     "apply_overrides",
     "encoder_config",
     "load_encoder_json",
+    "wavlm_large_config",
     "CORPUS_PRESETS",
     "dad_preset",
     "pretrain_preset",

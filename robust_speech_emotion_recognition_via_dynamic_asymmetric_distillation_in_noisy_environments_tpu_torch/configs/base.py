@@ -21,12 +21,19 @@ from typing import Any, Dict, Mapping, Optional, Tuple, Union
 
 @dataclass(frozen=True)
 class EncoderConfig:
-    """emotion2vec (data2vec-multi audio) encoder hyperparameters.
+    """Encoder hyperparameters. ``arch`` "emotion2vec" (the default) is the
+    data2vec-multi audio encoder and mirrors upstream/models/config.py:14-113
+    and audio.py:22-45 of the reference (only the ``features_only``
+    inference path matters downstream). ``arch`` "wavlm" is WavLM's pre-LN
+    encoder (``models/wavlm.py``; ``wavlm_large_config`` gives its published
+    sizes), which reads ``embed_dim``, ``depth``, ``num_heads``,
+    ``mlp_ratio``, ``norm_eps``, ``conv_feature_layers``,
+    ``conv_pos_width`` (one positional conv of that kernel),
+    ``conv_pos_groups``, ``num_buckets``, ``max_bucket_distance``,
+    ``normalize_input``, ``dtype``, ``fast_ln``, ``gelu_approximate`` and
+    ``use_flash_attention`` (True: the relative-bias kernel)."""
 
-    Mirrors upstream/models/config.py:14-113 and audio.py:22-45 of the
-    reference (only the ``features_only`` inference path matters downstream).
-    """
-
+    arch: str = "emotion2vec"  # "emotion2vec" | "wavlm"
     embed_dim: int = 768
     depth: int = 8
     num_heads: int = 12
@@ -98,10 +105,27 @@ class EncoderConfig:
     # emotion2vec.py:136-141); inference is always deterministic
     layerdrop: float = 0.0
     prenet_layerdrop: float = 0.0
+    # WavLM's T5-style relative position buckets (arch "wavlm" only)
+    num_buckets: int = 320
+    max_bucket_distance: int = 800
 
     @property
     def head_dim(self) -> int:
         return self.embed_dim // self.num_heads
+
+
+def wavlm_large_config(**kw: Any) -> EncoderConfig:
+    """WavLM Large at the published sizes (arXiv:2110.13900; the
+    ``microsoft/wavlm-large`` config): 1024 wide, 24 pre-LN layers of 16
+    heads, feed-forward 4096, LayerNorm eps 1e-5, the wav2vec2 conv front end
+    with channel LayerNorms, one positional conv of kernel 128 in 16 groups;
+    ``kw`` overrides."""
+    fields: Dict[str, Any] = dict(
+        arch="wavlm", embed_dim=1024, depth=24, num_heads=16, mlp_ratio=4.0, norm_eps=1e-5,
+        prenet_depth=0, conv_pos_width=128, conv_pos_groups=16, conv_pos_depth=1,
+        use_flash_attention=True)
+    fields.update(kw)
+    return EncoderConfig(**fields)
 
 
 @dataclass(frozen=True)
@@ -402,10 +426,13 @@ def encoder_config(encoder_json: Optional[str] = None, **kw: Any) -> EncoderConf
     """The config of a frozen encoder (``extract``, ``preprocess``, ``serve``,
     ``dad --from-wav``): attention through the kernel unless
     ``encoder_json`` sets ``use_flash_attention``; ``kw`` (e.g. ``dtype``)
-    under the JSON's overrides."""
+    under the JSON's overrides. ``"arch": "wavlm"`` starts from
+    ``wavlm_large_config``."""
     fields: Dict[str, Any] = {"use_flash_attention": True, **kw}
     if encoder_json:
         fields.update(load_encoder_json(encoder_json))
+    if fields.get("arch") == "wavlm":  # WavLM Large's sizes under the overrides
+        return wavlm_large_config(**fields)
     return EncoderConfig(**fields)
 
 

@@ -69,6 +69,23 @@
 // to 8 % faster, the others slower.
 // The f32 variant (checks, f32 configurations) is the first port's FMA
 // design: one query row per thread, 32-key tiles through shared memory.
+//
+// The biased variant (attn_fwd_relbias_*: WavLM's gated relative position
+// bias; no TPU kernel, the JAX package has no such model) adds
+//   bias[b, h, q, k] = gate[b, h, q] * table[h, k - q + N - 1]
+// to the scaled scores before the row max: table is (H, 2N - 1) f32, gate
+// (B, H, N) f32 through its own strides. The bias factors into a row's gate
+// and a slice of one head's table, so nothing N x N is read or written. A
+// 64 x 64 score tile needs 127 entries of table[h]; a thread reads its 18
+// through the read-only cache (L1 and L2: a head's table is 12 KB at
+// N = 1499) and adds gate * entry to the score in registers, one FMA and one
+// multiply an element, beside the exponential that bounds the tile. Masking
+// and tile skipping are the unbiased kernel's. Both variants are one body
+// The bf16 variant is a copy of the unbiased kernel's body with those lines
+// added, under its own __global__ name, so that a device trace tells the two
+// apart and the unbiased kernel compiles to the code it had before (its
+// SASS, checked with cuobjdump); the f32 variant is one body, a template on
+// BIAS, under two names.
 
 #include <cuda.h>  // CUtensorMap and its enums; the encoder comes from the runtime
 #include <cuda_bf16.h>
@@ -318,6 +335,44 @@ __device__ __forceinline__ void store_rows(const float (&acc)[32], const float (
   }
 }
 
+constexpr float LOG2E = 1.4426950408889634f;
+
+// The gated relative position bias of a biased launch: table (H, 2N - 1),
+// contiguous; gate (B, H, N) with element strides gs (b, h, n).
+struct RelBias {
+  const float* table;
+  const float* gate;
+  long long gsb, gsh, gsn;
+};
+
+// sc = c * s + g2[r] * table entry, in log2 units (g2 = gate * log2 e).
+// Element 4j + 2r + e (row row0 + 8r, key k0 + 8j + 2 quad + e) reads the
+// entry base + 8 (j - r) + e, base = k0 + 2 quad - row0 + N - 1. Inside the
+// table for a tile whose rows and keys are all below N; in a ragged tile
+// (CLAMP) indices are clamped to [0, last]: only a key past N (a dead
+// column) or a row past N (never stored) reads a clamped entry. Unclamped,
+// the 18 loads are one base address and immediate offsets. Entry m
+// (= j - r + 1, 0..8) serves (j = m - 1, r = 0) and (j = m, r = 1).
+template <bool CLAMP>
+__device__ __forceinline__ void add_bias(float (&sc)[32], const float* __restrict__ tb,
+                                         int base, int last, float c, const float (&g2)[2]) {
+  const float* tt = CLAMP ? tb : tb + base;  // unclamped: base lies inside the table
+#pragma unroll
+  for (int m = 0; m < 9; ++m) {
+    const int i0 = base + 8 * (m - 1);
+    const float t0 = CLAMP ? __ldg(tb + min(max(i0, 0), last)) : __ldg(tt + 8 * (m - 1));
+    const float t1 = CLAMP ? __ldg(tb + min(max(i0 + 1, 0), last)) : __ldg(tt + 8 * (m - 1) + 1);
+    if (m >= 1) {
+      sc[4 * (m - 1)] = fmaf(sc[4 * (m - 1)], c, g2[0] * t0);
+      sc[4 * (m - 1) + 1] = fmaf(sc[4 * (m - 1) + 1], c, g2[0] * t1);
+    }
+    if (m <= 7) {
+      sc[4 * m + 2] = fmaf(sc[4 * m + 2], c, g2[1] * t0);
+      sc[4 * m + 3] = fmaf(sc[4 * m + 3], c, g2[1] * t1);
+    }
+  }
+}
+
 // ---------------------------------------------------------------------------
 // bf16: TMA + wgmma, one warpgroup a block, its warp 0 issuing the loads
 // (4 blocks an SM: 113 registers a thread, 51 KB of shared memory)
@@ -490,6 +545,181 @@ attn_fwd_bf16_kernel(const __grid_constant__ CUtensorMap tq,
              q0 + warp * 16 + (lane >> 2), N, quad);
 }
 
+
+// The unbiased kernel above with the gated relative position bias: its own
+// copy of the body, so that the unbiased one compiles as it did before the
+// bias existed. The lines that differ: the rows' gates and the table index
+// base before the loop, each tile's first key read with its padded-key bits,
+// and add_bias before the online softmax (which then takes log2 units).
+__global__ void __launch_bounds__(128, 4)
+attn_fwd_relbias_bf16_kernel(const __grid_constant__ CUtensorMap tq,
+                             const __grid_constant__ CUtensorMap tk,
+                             const __grid_constant__ CUtensorMap tv,
+                             const uint8_t* __restrict__ mask, __nv_bfloat16* __restrict__ o,
+                             long long osb, long long osh, long long osn, int N, float scale,
+                             const RelBias rb) {
+  extern __shared__ unsigned char smem_raw[];
+  SmemBf16& sm = *reinterpret_cast<SmemBf16*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, quad = lane & 3;
+  const int b = blockIdx.z, h = blockIdx.y, q0 = blockIdx.x * TILE;
+  const int tiles = (N + TILE - 1) / TILE;
+  const uint8_t* mrow = mask != nullptr ? mask + (size_t)b * N : nullptr;
+
+  if (threadIdx.x == 0) {  // q goes first: it needs nothing of the mask
+    for (int s = 0; s < K_STAGES; ++s) mbar_init(&sm.full_k[s], 1);
+    for (int s = 0; s < V_STAGES; ++s) mbar_init(&sm.full_v[s], 1);
+    mbar_init(&sm.qbar, 2);  // the q copy's arrive, and n_tiles written
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    mbar_expect_tx(&sm.qbar, TILE_BYTES);
+    tma_load(sm.q, &tq, &sm.qbar, q0, h, b);
+  }
+  __syncthreads();
+
+  // Warp 0 walks the key tiles with a valid key (the ring; a tile whose keys
+  // are all padded is neither loaded nor computed) and loads them: K of ring
+  // tile i + 2 once S_i is done, V of ring tile i + 2 once the PV product of
+  // tile i - 1 is done. Lane 0 issues the copies.
+  int cursor = 0;                      // warp 0: the next key tile to look at
+  int next_k0 = 0;                     // warp 0: the ring tile whose K goes next
+  uint32_t next_lo = 0, next_hi = 0;   //         and its padded-key bits
+  auto advance = [&]() {  // warp 0: finds the next ring tile; false if none is left
+    while (cursor < tiles) {
+      next_k0 = TILE * cursor++;
+      if (tile_bits(mrow, next_k0, N, lane, next_lo, next_hi)) return true;
+    }
+    return false;
+  };
+  auto load_k = [&](int i) {
+    if (lane == 0) {
+      const int s = i % K_STAGES;
+      sm.pad[s][0] = next_lo;  // released with the slot by the arrive below
+      sm.pad[s][1] = next_hi;
+      sm.k0[s] = next_k0;
+      mbar_expect_tx(&sm.full_k[s], TILE_BYTES);
+      tma_load(sm.k[s], &tk, &sm.full_k[s], next_k0, h, b);
+    }
+  };
+  auto load_v = [&](int i) {
+    if (lane == 0) {
+      const int s = i % V_STAGES;
+      mbar_expect_tx(&sm.full_v[s], TILE_BYTES);
+      tma_load(sm.v[s], &tv, &sm.full_v[s], next_k0, h, b);
+    }
+  };
+  if (warp == 0) {
+    int n = 0;  // ring tiles: the first three are loaded before the rest is counted
+    for (; n < 3 && advance(); ++n) {  // K and V of ring tiles 0, 1; V of 2
+      if (n < 2) load_k(n);
+      load_v(n);
+    }
+    for (int t = cursor; t < tiles; ++t) {
+      uint32_t lo, hi;
+      n += tile_bits(mrow, t * TILE, N, lane, lo, hi);
+    }
+    if (lane == 0) {
+      sm.n_tiles = n;
+      mbar_arrive(&sm.qbar);  // releases n_tiles
+    }
+    __syncwarp();
+  }
+
+  // A thread's accumulator elements i = 4j + 2r + e (j < 8, r, e < 2) sit at
+  // row 16 warp + lane / 4 + 8r, column 8j + 2 (lane % 4) + e.
+  const float c = scale * 1.4426950408889634f;  // scores to log2 units
+  // this thread's rows' gates in log2 units, its head's table, and the table
+  // index of its first element less the tile's first key
+  float g2[2];
+  const int row0 = q0 + warp * 16 + (lane >> 2);
+  const float* gb = rb.gate + (size_t)b * rb.gsb + (size_t)h * rb.gsh;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) g2[r] = gb[(size_t)min(row0 + 8 * r, N - 1) * rb.gsn] * LOG2E;
+  const float* tb = rb.table + (size_t)h * (2 * N - 1);
+  const int rel0 = 2 * quad - row0 + N - 1;
+  const bool edge_rows = q0 + TILE > N;  // the last query block: rows past N
+  float acc[32];
+  uint32_t pa[4][4];  // P of the tile whose PV product is pending, as A fragments
+#pragma unroll
+  for (int k = 0; k < 32; ++k) {
+    acc[k] = 0.f;
+    pa[k / 8][(k / 2) % 4] = 0u;
+  }
+  // running max (log2 units) and this thread's share of the running sum
+  float m_run[2] = {-INFINITY, -INFINITY}, l_run[2] = {0.f, 0.f};
+  const uint32_t q_addr = smem_u32(sm.q);
+
+  mbar_wait(&sm.qbar, 0);
+  const int n_tiles = sm.n_tiles;
+  // Per ring tile i: S_i = Q K_i^T and O += P_{i-1} V_{i-1} are issued
+  // together; the softmax of S_i runs while the PV product is on the tensor
+  // cores; O is rescaled once that product is done. For i = 0, P is 0 and
+  // the product reads V_0: it adds 0, and keeps the loop free of branches
+  // around the wgmmas. A slot is refilled once warp 0 has seen the wgmma
+  // that read it complete: a wgmma completes for the whole warpgroup, and
+  // every warp reads the slot's pad and k0 before it issues that wgmma.
+  for (int i = 0; i < n_tiles; ++i) {
+    const int ks = i % K_STAGES, jv = max(i - 1, 0), vs = jv % V_STAGES;
+    mbar_wait(&sm.full_k[ks], (i / K_STAGES) & 1);
+    const uint64_t dead = dead_columns(sm.pad[ks][0], sm.pad[ks][1], sm.k0[ks], N, quad);
+    const int kt0 = sm.k0[ks];  // read before warp 0 refills the slot below
+    mbar_wait(&sm.full_v[vs], (jv / V_STAGES) & 1);
+
+    float sc[32];
+#pragma unroll
+    for (int k = 0; k < 32; ++k) sc[k] = 0.f;
+    const uint32_t k_addr = smem_u32(sm.k[ks]), v_addr = smem_u32(sm.v[vs]);
+    pin(sc);
+    pin(acc);
+    pin(pa);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)  // 16 d (32 bytes) a k-slice
+      wgmma_ss(sc, sw128_desc(q_addr + 32 * kk), sw128_desc(k_addr + 32 * kk), kk);
+    wgmma_commit();
+#pragma unroll
+    for (int kk = 0; kk < TILE / 16; ++kk)  // 16 keys (2048 bytes of V) a k-slice
+      wgmma_rs(acc, pa[kk], sw128_desc(v_addr + 2048 * kk));
+    wgmma_commit();
+    wgmma_wait<1>();  // S_i is done; the PV product may still run
+    pin(sc);
+    if (warp == 0 && i + 2 < n_tiles) {  // K slot ks is free: K of ring tile i + 2
+      if (i > 0) advance();  // ring tile 2 was found before the loop
+      load_k(i + 2);
+    }
+
+    float alpha[2];
+    if (edge_rows || kt0 + TILE > N)  // a ragged tile: indices clamped
+      add_bias<true>(sc, tb, kt0 + rel0, 2 * N - 2, c, g2);
+    else
+      add_bias<false>(sc, tb, kt0 + rel0, 2 * N - 2, c, g2);
+    softmax_tile(sc, dead, 1.f, m_run, l_run, alpha);  // the scores are in log2 units
+    wgmma_wait<0>();
+    pin(acc);
+    pin(pa);
+    if (warp == 0 && i > 0 && i + 2 < n_tiles) load_v(i + 2);  // V slot of i - 1 is free
+    rescale_and_pack(acc, sc, alpha, pa);
+  }
+  if (n_tiles > 0) {  // the last tile's PV product
+    const int jv = n_tiles - 1, vs = jv % V_STAGES;
+    mbar_wait(&sm.full_v[vs], (jv / V_STAGES) & 1);
+    const uint32_t v_addr = smem_u32(sm.v[vs]);
+    pin(acc);
+    pin(pa);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < TILE / 16; ++kk)
+      wgmma_rs(acc, pa[kk], sw128_desc(v_addr + 2048 * kk));
+    wgmma_commit();
+    wgmma_wait<0>();
+    pin(acc);
+    pin(pa);
+  }
+
+  store_rows(acc, l_run, o + (size_t)b * osb + (size_t)h * osh, osn,
+             q0 + warp * 16 + (lane >> 2), N, quad);
+}
+
 // ---------------------------------------------------------------------------
 // f32: FMA loops, one query row per thread, 64 rows per block, 32-key tiles.
 // ---------------------------------------------------------------------------
@@ -514,10 +744,13 @@ __device__ __forceinline__ float key_flag(const uint8_t* mrow, int j, int N) {
   return (mrow != nullptr && mrow[j]) ? 1.f : 0.f;
 }
 
-__global__ void __launch_bounds__(F_BQ)
-attn_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                    const float* __restrict__ v, const uint8_t* __restrict__ mask,
-                    float* __restrict__ o, const Strides st, int N, float scale) {
+template <bool BIAS>
+__device__ __forceinline__ void attn_f32_body(const float* __restrict__ q,
+                                              const float* __restrict__ k,
+                                              const float* __restrict__ v,
+                                              const uint8_t* __restrict__ mask,
+                                              float* __restrict__ o, const Strides& st, int N,
+                                              float scale, const RelBias& rb) {
   __shared__ __align__(16) float ks[F_BK][D];
   __shared__ __align__(16) float vs[F_BK][D];
   __shared__ float flag[F_BK];
@@ -542,6 +775,14 @@ attn_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
     acc[d] = acc[d + 1] = acc[d + 2] = acc[d + 3] = 0.f;
   }
   float m_run = -INFINITY, l_run = 0.f;
+  // biased: the row's gate and the table index of key 0 (clamped at use:
+  // a row past N is never stored)
+  float gq = 0.f;
+  const float* tb = nullptr;
+  if constexpr (BIAS) {
+    gq = rb.gate[(size_t)b * rb.gsb + (size_t)h * rb.gsh + (size_t)min(row, N - 1) * rb.gsn];
+    tb = rb.table + (size_t)h * (2 * N - 1);
+  }
 
   for (int k0 = 0; k0 < N; k0 += F_BK) {
     __syncthreads();
@@ -580,6 +821,7 @@ attn_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
       float x = 0.f;
 #pragma unroll
       for (int d = 0; d < D; ++d) x = fmaf(qr[d], ks[j][d], x);
+      if constexpr (BIAS) x += gq * __ldg(tb + min(max(k0 + j - row + N - 1, 0), 2 * N - 2));
       const float f = flag[j];
       x = f < 0.f ? -INFINITY : x + f * NEG;
       s[j] = x;
@@ -612,6 +854,21 @@ attn_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
       *reinterpret_cast<float4*>(dst + d) =
           make_float4(acc[d] * inv, acc[d + 1] * inv, acc[d + 2] * inv, acc[d + 3] * inv);
   }
+}
+
+__global__ void __launch_bounds__(F_BQ)
+attn_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                    const float* __restrict__ v, const uint8_t* __restrict__ mask,
+                    float* __restrict__ o, const Strides st, int N, float scale) {
+  attn_f32_body<false>(q, k, v, mask, o, st, N, scale, RelBias{});
+}
+
+__global__ void __launch_bounds__(F_BQ)
+attn_fwd_relbias_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                            const float* __restrict__ v, const uint8_t* __restrict__ mask,
+                            float* __restrict__ o, const Strides st, int N, float scale,
+                            const RelBias rb) {
+  attn_f32_body<true>(q, k, v, mask, o, st, N, scale, rb);
 }
 
 // ---------------------------------------------------------------------------
@@ -663,26 +920,81 @@ int encode(EncodeTiledFn fn, CUtensorMap* map, const void* base, int B, int H, i
   return r == CUDA_SUCCESS ? 0 : ERR_ENCODE_BASE - (int)r;
 }
 
+template <bool BIAS>
 int launch_bf16(const CUtensorMap& tq, const CUtensorMap& tk, const CUtensorMap& tv,
                 const uint8_t* mask, __nv_bfloat16* o, const long long* os, int B, int H, int N,
-                float scale, cudaStream_t stream) {
+                float scale, const RelBias& rb, cudaStream_t stream) {
   const int smem = (int)sizeof(SmemBf16) + 1024;  // + room to align the base
-  // the shared-memory attribute is set once per device (bit d: device d)
+  // the shared-memory attribute is set once per device and kernel (bit d:
+  // device d; one set of bits per instantiation)
   static std::atomic<uint64_t> attribute_set{0};
+  const void* kernel = BIAS ? reinterpret_cast<const void*>(attn_fwd_relbias_bf16_kernel)
+                            : reinterpret_cast<const void*>(attn_fwd_bf16_kernel);
   int dev;
   cudaError_t e = cudaGetDevice(&dev);
   if (e != cudaSuccess) return (int)e;
   const uint64_t bit = dev < 64 ? uint64_t(1) << dev : 0;
   if (bit == 0 || (attribute_set.load(std::memory_order_relaxed) & bit) == 0) {
-    e = cudaFuncSetAttribute(attn_fwd_bf16_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             smem);
+    e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (e != cudaSuccess) return (int)e;
     attribute_set.fetch_or(bit, std::memory_order_relaxed);
   }
   const dim3 grid((N + TILE - 1) / TILE, H, B);
-  attn_fwd_bf16_kernel<<<grid, 128, smem, stream>>>(tq, tk, tv, mask, o, os[0], os[1], os[2],
-                                                    N, scale);
+  if constexpr (BIAS)
+    attn_fwd_relbias_bf16_kernel<<<grid, 128, smem, stream>>>(tq, tk, tv, mask, o, os[0], os[1],
+                                                              os[2], N, scale, rb);
+  else
+    attn_fwd_bf16_kernel<<<grid, 128, smem, stream>>>(tq, tk, tv, mask, o, os[0], os[1], os[2],
+                                                      N, scale);
   return (int)cudaGetLastError();
+}
+
+template <bool BIAS>
+int run_bf16(const void* q, const void* k, const void* v, const void* mask, void* o, int B,
+             int H, int N, const long long* strides, float scale, const RelBias& rb,
+             void* stream) {
+  if (B <= 0 || H <= 0 || N <= 0) return 0;
+  const EncodeTiledFn fn = encoder();
+  if (fn == nullptr) return ERR_NO_ENCODER;
+  CUtensorMap tq, tk, tv;
+  int err;
+  if ((err = encode(fn, &tq, q, B, H, N, strides)) != 0) return err;
+  if ((err = encode(fn, &tk, k, B, H, N, strides + 3)) != 0) return err;
+  if ((err = encode(fn, &tv, v, B, H, N, strides + 6)) != 0) return err;
+  return launch_bf16<BIAS>(tq, tk, tv, static_cast<const uint8_t*>(mask),
+                           static_cast<__nv_bfloat16*>(o), strides + 9, B, H, N, scale, rb,
+                           static_cast<cudaStream_t>(stream));
+}
+
+template <bool BIAS>
+int run_f32(const void* q, const void* k, const void* v, const void* mask, void* o, int B,
+            int H, int N, const long long* strides, float scale, const RelBias& rb,
+            void* stream) {
+  if (B <= 0 || H <= 0 || N <= 0) return 0;
+  Strides st;
+  for (int i = 0; i < 3; ++i) {
+    st.q[i] = strides[i];
+    st.k[i] = strides[3 + i];
+    st.v[i] = strides[6 + i];
+    st.o[i] = strides[9 + i];
+  }
+  const dim3 grid((N + F_BQ - 1) / F_BQ, H, B);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float *qf = static_cast<const float*>(q), *kf = static_cast<const float*>(k),
+              *vf = static_cast<const float*>(v);
+  const uint8_t* m = static_cast<const uint8_t*>(mask);
+  if constexpr (BIAS)
+    attn_fwd_relbias_f32_kernel<<<grid, F_BQ, 0, s>>>(qf, kf, vf, m, static_cast<float*>(o), st,
+                                                      N, scale, rb);
+  else
+    attn_fwd_f32_kernel<<<grid, F_BQ, 0, s>>>(qf, kf, vf, m, static_cast<float*>(o), st, N,
+                                              scale);
+  return (int)cudaGetLastError();
+}
+
+RelBias rel_bias(const void* table, const void* gate, const long long* gs) {
+  return RelBias{static_cast<const float*>(table), static_cast<const float*>(gate), gs[0], gs[1],
+                 gs[2]};
 }
 
 }  // namespace
@@ -696,35 +1008,32 @@ extern "C" {
 // the ERR_ codes above.
 int attn_fwd_bf16(const void* q, const void* k, const void* v, const void* mask, void* o,
                   int B, int H, int N, const long long* strides, float scale, void* stream) {
-  if (B <= 0 || H <= 0 || N <= 0) return 0;
-  const EncodeTiledFn fn = encoder();
-  if (fn == nullptr) return ERR_NO_ENCODER;
-  CUtensorMap tq, tk, tv;
-  int err;
-  if ((err = encode(fn, &tq, q, B, H, N, strides)) != 0) return err;
-  if ((err = encode(fn, &tk, k, B, H, N, strides + 3)) != 0) return err;
-  if ((err = encode(fn, &tv, v, B, H, N, strides + 6)) != 0) return err;
-  return launch_bf16(tq, tk, tv, static_cast<const uint8_t*>(mask),
-                     static_cast<__nv_bfloat16*>(o), strides + 9, B, H, N, scale,
-                     static_cast<cudaStream_t>(stream));
+  return run_bf16<false>(q, k, v, mask, o, B, H, N, strides, scale, RelBias{}, stream);
 }
 
 // The same contract in f32.
 int attn_fwd_f32(const void* q, const void* k, const void* v, const void* mask, void* o, int B,
                  int H, int N, const long long* strides, float scale, void* stream) {
-  if (B <= 0 || H <= 0 || N <= 0) return 0;
-  Strides st;
-  for (int i = 0; i < 3; ++i) {
-    st.q[i] = strides[i];
-    st.k[i] = strides[3 + i];
-    st.v[i] = strides[6 + i];
-    st.o[i] = strides[9 + i];
-  }
-  const dim3 grid((N + F_BQ - 1) / F_BQ, H, B);
-  attn_fwd_f32_kernel<<<grid, F_BQ, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-      static_cast<const uint8_t*>(mask), static_cast<float*>(o), st, N, scale);
-  return (int)cudaGetLastError();
+  return run_f32<false>(q, k, v, mask, o, B, H, N, strides, scale, RelBias{}, stream);
+}
+
+// The same contracts plus the gated relative position bias: table (H, 2N - 1)
+// f32, contiguous; gate (B, H, N) f32 with element strides gate_strides
+// (b, h, n).
+int attn_fwd_relbias_bf16(const void* q, const void* k, const void* v, const void* mask,
+                          void* o, int B, int H, int N, const long long* strides, float scale,
+                          const void* table, const void* gate, const long long* gate_strides,
+                          void* stream) {
+  return run_bf16<true>(q, k, v, mask, o, B, H, N, strides, scale,
+                        rel_bias(table, gate, gate_strides), stream);
+}
+
+int attn_fwd_relbias_f32(const void* q, const void* k, const void* v, const void* mask, void* o,
+                         int B, int H, int N, const long long* strides, float scale,
+                         const void* table, const void* gate, const long long* gate_strides,
+                         void* stream) {
+  return run_f32<true>(q, k, v, mask, o, B, H, N, strides, scale,
+                       rel_bias(table, gate, gate_strides), stream);
 }
 
 }  // extern "C"

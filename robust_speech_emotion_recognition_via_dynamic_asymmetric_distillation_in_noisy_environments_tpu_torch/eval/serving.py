@@ -16,7 +16,8 @@ Spans (``utils/profiling.py``, on ``time.monotonic``): ``serving.request``
 ``serving.queue`` (from the handler's put to the dispatcher's get;
 ``batch``), ``serving.collect`` (the dispatcher, from a group's first get
 to its close), ``serving.batch`` (one B-chunk; ``batch``) and under it
-``serving.assemble`` (padding and the host-to-device copy) and
+``serving.assemble`` (padding and the host-to-device copy; on the wav
+path ``samples``, each clip's length, in the batch's row order) and
 ``serving.results`` (the reply dicts, once the probabilities are on the
 host); a second ``serving.results`` spans setting a group's futures. The
 rest of a batch is the forward's issue and the wait for its copy back.
@@ -183,7 +184,7 @@ class EmotionPredictor:
         batch_dtype = np.int16 if i16 else np.float32
 
         def run(group):
-            with profiling.span("serving.assemble"):
+            with profiling.span("serving.assemble", samples=tuple(len(c) for c in group)):
                 T = _bucket(max(len(c) for c in group), self.extractor.buckets)
                 wav = np.zeros((self.batch_size, T), batch_dtype)
                 mask = np.ones((self.batch_size, T), bool)

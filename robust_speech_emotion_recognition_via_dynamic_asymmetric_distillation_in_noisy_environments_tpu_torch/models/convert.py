@@ -5,6 +5,13 @@
   natively. Same key set and the same strict audit as the JAX package's
   ``fairseq_to_flax_encoder``: every source key is mapped or a known
   pretraining-only dead weight, and shapes are checked against the module.
+- ``hf_wavlm_to_torch_encoder``: a transformers WavLM state dict
+  (``WavLMModel``'s keys, or ``WavLMForSequenceClassification``'s under
+  ``wavlm.`` with its ``layer_weights``) -> ``WavLMEncoder`` state dict: the
+  positional conv's weight norm folded, q/k/v concatenated into the fused
+  qkv, the same strict audit. ``load_encoder_checkpoint`` reads either
+  kind of checkpoint (``.pt``/``.bin``, or ``.safetensors`` where the
+  ``safetensors`` package is installed) by ``EncoderConfig.arch``.
 - ``flax_encoder_to_torch``: the JAX package's encoder param tree (numpy
   arrays) -> the same state dict. Conv kernels (k, in/g, out) become
   (out, in/g, k); dense kernels (in, out) become (out, in); flax ``scale``
@@ -121,9 +128,10 @@ def _check_encoder_shapes(state_dict: Mapping[str, torch.Tensor],
     """Raises unless ``state_dict`` has exactly the module's keys and shapes
     (the module is built on the meta device: no memory)."""
     from .emotion2vec import Emotion2vecEncoder
+    from .wavlm import WavLMEncoder
 
     with torch.device("meta"):
-        expected = Emotion2vecEncoder(cfg).state_dict()
+        expected = (WavLMEncoder if cfg.arch == "wavlm" else Emotion2vecEncoder)(cfg).state_dict()
     bad = [
         f"{k}: checkpoint {tuple(state_dict[k].shape)} vs module {tuple(v.shape)}"
         for k, v in expected.items()
@@ -197,6 +205,109 @@ def flax_encoder_to_torch(params: Mapping[str, Any], keep_bf16: bool = False
 
 def load_emotion2vec_checkpoint(path: str, cfg: EncoderConfig) -> Dict[str, torch.Tensor]:
     return fairseq_to_torch_encoder(load_torch_file(path), cfg)
+
+
+# ---------------------------------------------------------------------------
+# WavLM (transformers layout)
+# ---------------------------------------------------------------------------
+
+# Keys of a transformers WavLM checkpoint that the frozen encoder never
+# reads: the pretraining mask embedding, the quantizer, the adapter and a
+# sequence classifier's own projector and classifier (the port's DAD head
+# takes their place).
+_WAVLM_DEAD_PREFIXES = ("masked_spec_embed", "quantizer.", "project_hid.", "project_q.",
+                        "adapter.", "projector.", "classifier.", "lm_head.")
+
+
+def _wavlm_key_map(cfg: EncoderConfig) -> Dict[str, str]:
+    """{port key: transformers key} of every leaf copied as it is."""
+    m: Dict[str, str] = {}
+    for i in range(len(cfg.conv_feature_layers)):
+        base = f"feature_extractor.conv_layers.{i}"
+        m[f"local_encoder.conv_{i}.weight"] = f"{base}.conv.weight"
+        m[f"local_encoder.ln_{i}.weight"] = f"{base}.layer_norm.weight"
+        m[f"local_encoder.ln_{i}.bias"] = f"{base}.layer_norm.bias"
+    for name in ("weight", "bias"):
+        m[f"proj_ln.{name}"] = f"feature_projection.layer_norm.{name}"
+        m[f"proj.{name}"] = f"feature_projection.projection.{name}"
+        m[f"final_ln.{name}"] = f"encoder.layer_norm.{name}"
+    m["pos_conv.bias"] = "encoder.pos_conv_embed.conv.bias"
+    m["rel_attn_embed"] = "encoder.layers.0.attention.rel_attn_embed.weight"
+    for i in range(cfg.depth):
+        src, ours = f"encoder.layers.{i}", f"layer_{i}"
+        for name in ("weight", "bias"):
+            m[f"{ours}.norm1.{name}"] = f"{src}.layer_norm.{name}"
+            m[f"{ours}.norm2.{name}"] = f"{src}.final_layer_norm.{name}"
+            m[f"{ours}.attn.proj.{name}"] = f"{src}.attention.out_proj.{name}"
+            m[f"{ours}.attn.gate.{name}"] = f"{src}.attention.gru_rel_pos_linear.{name}"
+            m[f"{ours}.mlp.fc1.{name}"] = f"{src}.feed_forward.intermediate_dense.{name}"
+            m[f"{ours}.mlp.fc2.{name}"] = f"{src}.feed_forward.output_dense.{name}"
+    return m
+
+
+def hf_wavlm_to_torch_encoder(sd: Mapping[str, Any], cfg: EncoderConfig,
+                              strict: bool = True) -> Dict[str, torch.Tensor]:
+    """A transformers WavLM state dict -> the port's ``WavLMEncoder`` state
+    dict, every leaf f32. Without ``layer_weights`` (a ``WavLMModel``
+    checkpoint) the layer sum weighs every hidden state alike, as
+    ``WavLMForSequenceClassification`` starts. ``strict``: every source key
+    must be consumed or a known dead weight, and every shape must match."""
+    sd = {k[len("wavlm."):] if k.startswith("wavlm.") else k: v for k, v in sd.items()}
+    key_map = _wavlm_key_map(cfg)
+    out = {ours: _t(sd[src]).float() for ours, src in key_map.items()}
+    consumed = set(key_map.values())
+    pos = "encoder.pos_conv_embed.conv."
+    g_key, v_key = next(
+        ((g, v) for g, v in ((f"{pos}weight_g", f"{pos}weight_v"),
+                             (f"{pos}parametrizations.weight.original0",
+                              f"{pos}parametrizations.weight.original1")) if g in sd),
+        (f"{pos}weight", None))
+    # weight_norm(conv, dim=2): v scaled to norm g over (out, in) at each tap
+    out["pos_conv.weight"] = (_t(sd[g_key]).float() if v_key is None else
+                              torch._weight_norm(_t(sd[v_key]).float(), _t(sd[g_key]).float(), 2))
+    consumed |= {g_key} if v_key is None else {g_key, v_key}
+    for i in range(cfg.depth):
+        src = f"encoder.layers.{i}.attention."
+        qkv = [f"{src}{p}_proj.{name}" for name in ("weight", "bias") for p in "qkv"]
+        out[f"layer_{i}.attn.qkv.weight"] = torch.cat([_t(sd[k]).float() for k in qkv[:3]])
+        out[f"layer_{i}.attn.qkv.bias"] = torch.cat([_t(sd[k]).float() for k in qkv[3:]])
+        out[f"layer_{i}.attn.gate_const"] = _t(sd[f"{src}gru_rel_pos_const"]).float().reshape(-1)
+        consumed |= set(qkv) | {f"{src}gru_rel_pos_const"}
+    if "layer_weights" in sd:
+        out["layer_weights"] = _t(sd["layer_weights"]).float()
+        consumed.add("layer_weights")
+    else:
+        out["layer_weights"] = torch.zeros(cfg.depth + 1)
+    if strict:
+        unknown = sorted(k for k in sd if k not in consumed
+                         and not k.startswith(_WAVLM_DEAD_PREFIXES))
+        if unknown:
+            raise ValueError(
+                "WavLM checkpoint carries keys the converter does not recognize "
+                f"(not mapped, not known-dead): {unknown[:10]}"
+                + (f" ... +{len(unknown) - 10} more" if len(unknown) > 10 else ""))
+        _check_encoder_shapes(out, cfg)
+    return out
+
+
+def load_state_file(path: str) -> Dict[str, torch.Tensor]:
+    """``load_torch_file``, or a ``.safetensors`` file through the
+    ``safetensors`` package (an ImportError names it where it is missing)."""
+    if str(path).endswith(".safetensors"):
+        try:
+            from safetensors.torch import load_file
+        except ImportError as e:
+            raise ImportError(f"reading {path} needs the safetensors package") from e
+        return dict(load_file(str(path), device="cpu"))
+    return load_torch_file(path)
+
+
+def load_encoder_checkpoint(path: str, cfg: EncoderConfig) -> Dict[str, torch.Tensor]:
+    """The encoder state dict of ``cfg.arch`` from a checkpoint file: a
+    fairseq emotion2vec checkpoint, or a transformers WavLM one."""
+    if cfg.arch == "wavlm":
+        return hf_wavlm_to_torch_encoder(load_state_file(path), cfg)
+    return load_emotion2vec_checkpoint(path, cfg)
 
 
 # ---------------------------------------------------------------------------

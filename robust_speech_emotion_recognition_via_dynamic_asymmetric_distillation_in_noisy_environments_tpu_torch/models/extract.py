@@ -1,13 +1,15 @@
 """Offline feature extraction: wav manifest -> reference-format feature
 store (the counterpart of the reference's emotion2vec_speech_features.py).
 
-Clips are length-bucketed into padded batches through the encoder; the
-padding-exact batched forward (``layers.PositionalConv``) gives the same
-features as per-clip extraction. ``FeatureExtractor.extract_clips`` also
-serves the serving path and the fused trainer's startup. Output of
-``extract_manifest``: ``<save_dir>/<split>.npy`` (float32 rows) +
-``.lengths``, with the label sidecars copied through, in the JAX package's
-layout byte for byte (the reference's NpyAppendArray layout).
+Clips are length-bucketed into padded batches through the encoder
+(emotion2vec, or WavLM's weighted layer sum: ``EncoderConfig.arch``); the
+padding-exact batched forward (padded frames zeroed before the positional
+convs) gives the same features as per-clip extraction.
+``FeatureExtractor.extract_clips`` also serves the serving path and the
+fused trainer's startup. Output of ``extract_manifest``:
+``<save_dir>/<split>.npy`` (float32 rows) + ``.lengths``, with the label
+sidecars copied through, in the JAX package's layout byte for byte (the
+reference's NpyAppendArray layout).
 
 Over a (dp, tp) mesh (``parallel/mesh.py``; ``extract --dp/--tp`` under
 ``torchrun``) each batch is split over dp, each rank runs its tp shard of
@@ -44,8 +46,8 @@ def _bucket(n: int, buckets: Sequence[int]) -> int:
 
 
 class FeatureExtractor:
-    """Batched emotion2vec feature extractor on one device, or over a
-    mesh."""
+    """Batched feature extractor (emotion2vec, or WavLM's weighted layer
+    sum) on one device, or over a mesh."""
 
     def __init__(
         self,
@@ -57,7 +59,8 @@ class FeatureExtractor:
         mesh=None,
     ):
         """``state_dict``: the port's full encoder layout, from
-        ``convert.fairseq_to_torch_encoder`` or ``flax_encoder_to_torch``.
+        ``convert.fairseq_to_torch_encoder`` or ``flax_encoder_to_torch``
+        (``hf_wavlm_to_torch_encoder`` for ``cfg.arch`` "wavlm").
         ``mesh`` (a ``parallel.make_mesh`` grid): batches over dp, the
         encoder over tp, on the mesh's device; ``batch_size`` must divide
         by dp."""
@@ -185,14 +188,17 @@ def add_extract_args(p: argparse.ArgumentParser) -> None:
     """The flags of ``extract``, shared with the package's ``cli extract``."""
     p.add_argument("--data", required=True, help="manifest dir with <split>.tsv")
     p.add_argument("--split", default="train")
-    p.add_argument("--checkpoint", required=True, help="fairseq emotion2vec .pt")
+    p.add_argument("--checkpoint", required=True,
+                   help="fairseq emotion2vec .pt, or a transformers WavLM state dict with "
+                        "--encoder-json '{\"arch\": \"wavlm\"}'")
     p.add_argument("--save-dir", required=True)
     p.add_argument("--layer", type=int, default=11,
                    help="kept for CLI parity; the features_only path always returns the "
                         "final (12th) block output, like the reference extraction config")
     p.add_argument("--batch-size", type=int, default=16)
     p.add_argument("--encoder-json", default=None,
-                   help="EncoderConfig overrides as inline JSON or a JSON file")
+                   help="EncoderConfig overrides as inline JSON or a JSON file "
+                        "(\"arch\": \"wavlm\" starts from WavLM Large)")
     p.add_argument("--dp", type=int, default=0,
                    help="shard batches over a dp mesh of this size (0 = single device; "
                         "under torchrun, max(dp, 1) * tp processes)")
@@ -207,13 +213,13 @@ def run(args) -> int:
     ``configs.encoder_config`` (frozen, so the forward-only attention
     kernel serves). ``--dp``/``--tp`` need ``torchrun`` (else exit 2)."""
     from ..parallel.mesh import LaunchError, flag_mesh
-    from .convert import load_emotion2vec_checkpoint
+    from .convert import load_encoder_checkpoint
 
     try:
         with flag_mesh(args.dp, args.tp, args.device,
                        getattr(args, "argv", None) or ["extract"]) as mesh:
             cfg = encoder_config(args.encoder_json)
-            state = load_emotion2vec_checkpoint(args.checkpoint, cfg)
+            state = load_encoder_checkpoint(args.checkpoint, cfg)
             extract_manifest(args.data, args.save_dir, cfg, state, args.split,
                              args.batch_size, mesh=mesh, device=args.device)
     except LaunchError as e:

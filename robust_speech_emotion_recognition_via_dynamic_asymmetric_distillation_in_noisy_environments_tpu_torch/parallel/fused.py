@@ -40,6 +40,7 @@ from ..dad.train_step import (
 from ..models.emotion2vec import Emotion2vecEncoder, normalize_wav
 from ..models.heads import DADHead
 from ..models.layers import conv_out_lengths, convert_padding_mask
+from ..models.wavlm import WavLMEncoder
 from ..utils.device import resolve_device
 from .mesh import Mesh, batch_rows, batch_sharding, replicated, shard_encoder_state
 from .sharded import as_tensor, draw_head, dp_head_step, shard_dad_state, slice_draws, valid_max
@@ -104,14 +105,24 @@ def precompute_clean_features(encoder: Emotion2vecEncoder, cfg: FusedConfig,
 
 def frozen_encoder(cfg: EncoderConfig, encoder_state: Dict[str, torch.Tensor],
                    device: Union[str, torch.device], mesh: Optional[Mesh] = None
-                   ) -> Emotion2vecEncoder:
-    """The frozen encoder on ``device`` from a full state dict; over a
-    mesh with tp > 1, this rank's tensor-parallel shard of it."""
+                   ) -> torch.nn.Module:
+    """The frozen encoder of ``cfg.arch`` on ``device`` from a full state
+    dict; over a mesh with tp > 1, this rank's tensor-parallel shard of it
+    (emotion2vec only: WavLM over tp is refused)."""
     group = mesh.tp_group if mesh is not None and mesh.tp > 1 else None
-    if group is not None:
-        encoder_state = shard_encoder_state(encoder_state, mesh)
-    with torch.device(device):
-        encoder = Emotion2vecEncoder(cfg, tp_group=group)
+    if cfg.arch == "wavlm":
+        if group is not None:
+            raise ValueError(f"WavLM has no tensor-parallel encoder: run it with tp 1, "
+                             f"not tp {mesh.tp}")
+        with torch.device(device):
+            encoder = WavLMEncoder(cfg)
+    elif cfg.arch == "emotion2vec":
+        if group is not None:
+            encoder_state = shard_encoder_state(encoder_state, mesh)
+        with torch.device(device):
+            encoder = Emotion2vecEncoder(cfg, tp_group=group)
+    else:
+        raise ValueError(f"unknown encoder architecture {cfg.arch!r}")
     encoder.load_state_dict(encoder_state)
     return encoder.requires_grad_(False)
 

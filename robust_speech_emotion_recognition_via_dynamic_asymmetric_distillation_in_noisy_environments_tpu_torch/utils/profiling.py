@@ -24,7 +24,7 @@ import contextlib
 import os
 import threading
 import time
-from typing import Deque, Dict, List, NamedTuple, Optional
+from typing import Any, Deque, Dict, List, NamedTuple, Optional
 
 import torch
 
@@ -111,7 +111,7 @@ class Span(NamedTuple):
     name: str
     start: float
     end: float
-    attrs: Dict[str, int]
+    attrs: Dict[str, Any]  # ints, or a tuple of ints (one a row)
 
 
 class _OpenSpan:
@@ -119,7 +119,7 @@ class _OpenSpan:
 
     __slots__ = ("_rec", "_name", "_attrs", "_t0")
 
-    def __init__(self, rec: "Recorder", name: str, attrs: Dict[str, int]):
+    def __init__(self, rec: "Recorder", name: str, attrs: Dict[str, Any]):
         self._rec, self._name, self._attrs = rec, name, attrs
 
     def __enter__(self) -> "_OpenSpan":
@@ -148,11 +148,11 @@ class Recorder:
                 self._lost_until = max(self._lost_until, self._ring[0].end)
             self._ring.append(span)
 
-    def span(self, name: str, **attrs: int) -> _OpenSpan:
+    def span(self, name: str, **attrs: Any) -> _OpenSpan:
         """A context manager recording its block as the span ``name``."""
         return _OpenSpan(self, name, attrs)
 
-    def add_span(self, name: str, t0: float, t1: float, **attrs: int) -> None:
+    def add_span(self, name: str, t0: float, t1: float, **attrs: Any) -> None:
         """Records a span whose ends were taken elsewhere (on
         ``time.monotonic``), such as in two threads."""
         self._append(Span(name, t0, t1, attrs))
