@@ -86,10 +86,8 @@ Phases (any failure raises and the script exits non-zero without a result):
    "--epochs", "3", "--warmup-epochs", "1"])`` on the card (the iemocap
    preset at full width). Checks rc 0, a finite history of the right
    lengths, that the best .pth reloads and re-validates to the logged best
-   noisy WA, and noisy test WA above chance; then ``--scan-chunk 4`` must
-   give the same history (resident), and with ``--resident off`` the same
-   first 2 chunks of epoch 2 as per-step, the pinned prefetch path must deliver batches
-   unaltered under a slow consumer, and the same trainer on the card and
+   noisy WA, and noisy test WA above chance; then the pinned prefetch path
+   must deliver batches unaltered under a slow consumer, and the same trainer on the card and
    on the CPU, from one pretrain head and fed the same draws through its
    hook for 3 steps, must agree. Prints ms/step (epoch 2), epoch and
    validation seconds, clips/s, H2D MB per step (f32 and bf16 transfer),
@@ -172,8 +170,7 @@ Phases (any failure raises and the script exits non-zero without a result):
     without a collapse, the last loss under step 1's, the best state and
     both encoder exports loading. Then 3-step agreement runs over 48 clips
     from one init: two identical runs (the card's drift), resident vs
-    ``--resident off``, ``--scan-chunk 2`` vs per-step, ``d2v-pack`` +
-    ``--binarized`` vs the wav manifest, ``--remat`` vs none (dropout on),
+    ``--resident off``, ``d2v-pack`` + ``--binarized`` vs the wav manifest, ``--remat`` vs none (dropout on),
     each within 4x that drift; 2 steps on the card and the CPU from one
     init and the same draws (f32, B 2, 2 s crops); the exported encoder
     extracting Session 5 through the attention kernel (12 launches a
@@ -1579,10 +1576,8 @@ def run_training_slice(enc_sd, clean: FusedBatch, noisy: FusedBatch) -> dict:
 # frames/s, mean ~225), and a noisy twin of each clip
 FEATURE_CLASSES = {"ang": 1103, "hap": 1636, "neu": 1708, "sad": 1084}
 FEATURE_DIM, FEATURE_FRAMES, FEATURE_NOISE_STD = 768, (50, 1000), 0.5
-FEATURE_EPOCHS, FEATURE_CHUNK, CARD_CPU_STEPS = 3, 4, 3
-# the streamed chunk runner against per-step over the first chunks of epoch 2
-FEATURE_STREAMED_CHUNKS = 2
-# card vs CPU over the trainer's first steps and --scan-chunk vs per-step:
+FEATURE_EPOCHS, CARD_CPU_STEPS = 3, 3
+# card vs CPU over the trainer's first steps, and resident vs streamed:
 # tests/test_torch_train_step.py's METRIC_TOL / STATE_TOL
 TRAINER_METRIC_TOL = dict(atol=2e-5, rtol=1e-4)
 TRAINER_STATE_TOL = dict(atol=2e-6, rtol=1e-4)
@@ -1769,20 +1764,6 @@ def check_trainer_run(trainer, epochs: int, min_test_wa=25.0) -> dict:
                 consistency=history["consistency_loss"], ecda=history["ecda_loss"])
 
 
-def compare_histories(got: dict, want: dict) -> dict:
-    """``--scan-chunk`` run against the per-step run: every series within
-    TRAINER_METRIC_TOL; returns the largest difference of each."""
-    if sorted(got) != sorted(want):
-        raise AssertionError(f"history keys {sorted(got)} vs {sorted(want)}")
-    diffs = {k: float(np.max(np.abs(np.asarray(got[k], np.float64) - np.asarray(want[k]))))
-             for k in want}
-    bad = [k for k in want if not close(got[k], want[k], TRAINER_METRIC_TOL)]
-    if bad:
-        raise AssertionError(f"--scan-chunk {FEATURE_CHUNK} history differs from per-step at "
-                             f"{bad}: {diffs}")
-    return diffs
-
-
 def card_against_cpu(cfg, clean_store, noisy_store) -> dict:
     """The same trainer on the card and on the CPU from one pretrain head
     (anchors calibrated on each), fed the same draws through the hook for
@@ -1955,24 +1936,6 @@ def resident_against_streamed(make, epoch: int) -> tuple:
     return paths_agree(checked, (("resident", True), ("streamed", False)), epoch, COMPARE_STEPS)
 
 
-def streamed_chunks_against_per_step(make, epoch: int) -> dict:
-    """``make(scan_chunk)`` builds a streamed trainer; one stepping through
-    ``epoch`` in chunks of FEATURE_CHUNK batches (the streamed chunk
-    runner, its chunks stacked on the host) and one stepping batch by batch
-    take the same first FEATURE_STREAMED_CHUNKS chunks (``paths_agree``).
-    Returns the max differences and each path's ms/step."""
-    def checked(chunk: int):
-        t = make(chunk)
-        if t._resident is not None or (t._epoch_runner is None) != (chunk == 0):
-            raise AssertionError(f"scan_chunk={chunk}: resident {t._resident is not None}, "
-                                 f"chunk runner {t._epoch_runner is not None}")
-        return t
-
-    out, _chunked = paths_agree(checked, (("chunked", FEATURE_CHUNK), ("per_step", 0)), epoch,
-                                FEATURE_STREAMED_CHUNKS * FEATURE_CHUNK)
-    return out
-
-
 def run_feature_trainer() -> dict:
     """Phase 8: ``cli dad --clean --noisy`` on the card at the iemocap
     preset's full width; the fold's stores resident on the card."""
@@ -2035,7 +1998,6 @@ def run_feature_trainer() -> dict:
                                             trainer._draws(last, 0, n.feats, n.padding_mask)))
         profile["batch_frames"] = int(n.feats.shape[1])
         print("profile: feature train step " + json.dumps(profile), flush=True)
-        history = read_history(trainer)
         cfg, stores = trainer.cfg, (trainer.clean_store, trainer.noisy_store)
         del trainer, probe, c, n
 
@@ -2050,30 +2012,6 @@ def run_feature_trainer() -> dict:
         del res
         print(f"train_features: resident vs --resident off, {COMPARE_STEPS} steps of epoch 2 "
               f"from one seed: " + json.dumps(report), flush=True)
-
-        # --scan-chunk on both paths: the resident chunk runner over the
-        # whole run, and the streamed chunks (stacked on the host by the
-        # prefetch worker) over the first chunks of epoch 2
-        with TrainerProbe() as probe_chunk:
-            rc = cli.main(argv + ["--name", "chunk_auto", "--scan-chunk", str(FEATURE_CHUNK)])
-        if rc != 0:
-            raise AssertionError(f"cli dad --scan-chunk returned {rc}")
-        chunked = probe_chunk.trainers[-1]
-        if chunked._resident is None:
-            raise AssertionError("--scan-chunk --resident auto: no resident corpus")
-        diffs = compare_histories(read_history(chunked), history)
-        chunk_s = [e["seconds"] for e in probe_chunk.epochs]
-        print(f"train_features: --scan-chunk {FEATURE_CHUNK} --resident auto history "
-              f"equals per-step within METRIC_TOL, max |diff| by series "
-              f"{json.dumps(diffs)}; epoch s {chunk_s}", flush=True)
-        del chunked, probe_chunk
-        report = streamed_chunks_against_per_step(
-            lambda chunk: CrossDomainTrainer(open_cfg, experiment_name=f"streamed_{chunk}",
-                                             clean_store=stores[0], noisy_store=stores[1],
-                                             resident=False, scan_chunk=chunk), epoch=2)
-        print(f"train_features: --scan-chunk {FEATURE_CHUNK} --resident off, the first "
-              f"{FEATURE_STREAMED_CHUNKS} chunks of epoch 2 against per-step from one seed: "
-              + json.dumps(report), flush=True)
 
         # DACP opened, so that the consistency and ECDA terms carry weight
         cpu_cfg = dataclasses.replace(cfg, dropout_rate=0.0, results_base_dir="card_cpu",
@@ -3402,8 +3340,7 @@ def d2v_diff(a: dict, b: dict) -> dict:
 
 def run_d2v_agreement(dirs: dict, ckpt: str, root: str) -> dict:
     """Two identical runs (the drift), then resident vs streamed,
-    --scan-chunk 2 vs per-step, d2v-pack + --binarized vs the wav manifest
-    and --remat vs none (dropout on: the default rates), each over 3 steps
+    d2v-pack + --binarized vs the wav manifest and --remat vs none (dropout on: the default rates), each over 3 steps
     from one init."""
     small = dirs["small"]
     packed = f"{root}/agree/packed"
@@ -3412,19 +3349,17 @@ def run_d2v_agreement(dirs: dict, ckpt: str, root: str) -> dict:
         "resident": d2v_agree_run("resident", small, ckpt, root, []),
         "resident_again": d2v_agree_run("resident_again", small, ckpt, root, []),
         "streamed": d2v_agree_run("streamed", small, ckpt, root, ["--resident", "off"]),
-        "chunked": d2v_agree_run("chunked", small, ckpt, root, ["--scan-chunk", "2"]),
         "packed": d2v_agree_run("packed", packed, ckpt, root,
                                 ["--binarized", "--resident", "off"]),
         "remat": d2v_agree_run("remat", small, ckpt, root, ["--remat"]),
     }
     if not (runs["resident"]["resident"] and runs["remat"]["resident"]) or any(
-            runs[n]["resident"] for n in ("streamed", "chunked", "packed")):
+            runs[n]["resident"] for n in ("streamed", "packed")):
         raise AssertionError("agreement runs: the resident corpus engaged where it should "
                              "not, or not where it should")
     drift = d2v_diff(runs["resident"], runs["resident_again"])
     tol = {k: D2V_DRIFT_FACTOR * v for k, v in drift.items()}
     pairs = {"resident vs streamed": ("resident", "streamed"),
-             "scan-chunk 2 vs per-step": ("chunked", "streamed"),
              "packed vs wav": ("packed", "streamed"),
              "remat vs none": ("remat", "resident")}
     out = dict(drift=drift, tolerance=tol, pack_s=pack_s,

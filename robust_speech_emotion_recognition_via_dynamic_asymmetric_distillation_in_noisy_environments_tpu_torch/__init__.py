@@ -22,7 +22,7 @@ Ported so far:
 - the feature-level DAD trainer (``train/dad_trainer.py``, ``cli dad
   --clean --noisy``) and the host plumbing under it: feature stores, fold
   splits, bucketed batching, the prefetch pipeline, metrics, reports,
-  anchor calibration, the chunked epoch runner, checkpoints;
+  anchor calibration, checkpoints;
 - the fused wav->train trainer (``train/fused_trainer.py``, ``cli dad
   --from-wav``), its attention through the kernel, and its wav plumbing:
   wav I/O (``audio/wavio.py``), the numpy injectors and NOISEX loaders

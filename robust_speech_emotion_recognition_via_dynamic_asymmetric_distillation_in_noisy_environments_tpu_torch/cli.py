@@ -295,7 +295,6 @@ def _cmd_dad(args):
     # the feature trainer is dp only (JAX cli.py:213-217); a mesh runs per step
     with flag_mesh(args.dp, 1, args.device, getattr(args, "argv", ["dad"])) as mesh:
         common = dict(experiment_name=args.name,
-                      scan_chunk=0 if mesh is not None else args.scan_chunk,
                       prefetch_depth=args.prefetch_depth, transfer_dtype=args.transfer_dtype,
                       resident=RESIDENT[args.resident], mesh=mesh, device=args.device)
         if args.fold == "all":
@@ -356,8 +355,6 @@ def _cmd_dad_fused(args):
             prefetch_depth=args.prefetch_depth,
             transfer_dtype=args.transfer_dtype,
             resident=RESIDENT[args.resident],
-            # per step under a mesh (JAX cli.py:182-183)
-            scan_chunk=0 if mesh is not None else args.scan_chunk,
             mesh=mesh,
             device=args.device,
         )
@@ -631,13 +628,6 @@ def _add_dad_parser(sub) -> None:
     p.add_argument("--fold", default="0", help="0-based fold index or 'all'")
     p.add_argument("--epochs", type=int, default=500)
     p.add_argument("--name", default=None)
-    # the JAX package defaults to 4 with --resident off, to amortise its
-    # per-dispatch uploads; here a chunk only pads and stacks its batches
-    # on the host, and 4 took 3x per-step's epoch time on an H100 (PERF.md)
-    p.add_argument("--scan-chunk", type=int, default=0,
-                   help="batches per chunk (0 = per-batch steps, the "
-                        "default; the same history either way). In --from-wav "
-                        "mode it chunks the resident corpus only")
     p.add_argument("--prefetch-depth", type=int, default=2,
                    help="batches assembled ahead on a worker thread (0 = sync)")
     p.add_argument("--transfer-dtype", default=None,
@@ -688,7 +678,7 @@ def _cmd_d2v_pretrain(args):
             init_checkpoint=args.init_checkpoint, log_every=args.log_every,
             checkpoint_every=args.checkpoint_every, resume=args.resume, mesh=mesh,
             binarized=args.binarized, transfer_dtype=args.transfer_dtype,
-            scan_chunk=args.scan_chunk, valid_manifests=args.valid_manifests,
+            valid_manifests=args.valid_manifests,
             valid_split=args.valid_split, valid_every=args.valid_every,
             resident=RESIDENT[args.resident], resident_max_bytes=args.resident_max_bytes,
             device=args.device,
@@ -755,8 +745,6 @@ def _add_d2v_parsers(sub) -> None:
     p.add_argument("--transfer-dtype", default=None, metavar="DTYPE",
                    help="ship wav batches host->device in this dtype (e.g. bfloat16; "
                         "quantizes the waveform)")
-    p.add_argument("--scan-chunk", type=int, default=1,
-                   help="updates per chunk of stacked batches (the same history as per-step)")
     p.add_argument("--valid-manifests", nargs="+", default=None,
                    help="manifest dirs with a <valid-split>.tsv: the masked objective there "
                         "every --valid-every steps, the best state kept")
@@ -767,8 +755,7 @@ def _add_d2v_parsers(sub) -> None:
                         "still overrides)")
     p.add_argument("--resident", choices=["auto", "on", "off"], default="auto",
                    help="the normalized training audio on the device once, crops gathered "
-                        "there (the same batches; per-step only: auto streams with "
-                        "--scan-chunk > 1)")
+                        "there (the same batches)")
     p.add_argument("--resident-max-bytes", type=int, default=8 << 30,
                    help="auto mode's device-memory budget for the corpus")
     p.add_argument("--device", default="cuda",

@@ -146,8 +146,8 @@ def run_single_fused_experiment(
     the clean extraction pass are reused.
 
     ``trainer_kw``: further keyword arguments of the
-    ``FusedCrossDomainTrainer`` (``resident``, ``scan_chunk``, the
-    ``step_draws`` test hook)."""
+    ``FusedCrossDomainTrainer`` (``resident``, the ``step_draws`` test
+    hook)."""
     from dataclasses import replace
 
     from ..train.fused_trainer import (
@@ -206,8 +206,8 @@ def run_single_experiment(
     trainer_kw: Optional[Mapping[str, Any]] = None,
 ) -> Dict[str, Any]:
     """One named feature-level experiment. ``trainer_kw``: further keyword
-    arguments of the ``CrossDomainTrainer`` (``resident``, ``scan_chunk``,
-    the ``step_draws`` test hook)."""
+    arguments of the ``CrossDomainTrainer`` (``resident``, the
+    ``step_draws`` test hook)."""
     cfg = apply_overrides(base_cfg, overrides)
     # a data-dir override is silently dead when a preloaded store is passed
     # (the trainer only reads cfg.*_data_dir with store=None) — every noise

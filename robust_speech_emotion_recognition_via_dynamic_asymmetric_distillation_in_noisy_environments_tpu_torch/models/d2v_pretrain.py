@@ -42,7 +42,7 @@ the same metrics.
 from __future__ import annotations
 
 import math
-from typing import Any, Callable, Dict, List, NamedTuple, Optional, Sequence, Tuple
+from typing import Any, Callable, Dict, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
@@ -713,23 +713,4 @@ def make_d2v_train_step(model: D2vPretrainModel, tx: D2vOptimizer):
         return d2v_update(model, tx, loss_fn, state, wav, wav_pad, generator, draws)
 
     return step
-
-
-def make_d2v_chunk_runner(model: D2vPretrainModel, tx: D2vOptimizer):
-    """run(state, wavs (k, B, T), pads (k, B, T), generator=None,
-    draws=None) -> (state', metrics stacked (k,)): k train steps in a loop,
-    the same as k calls of the step. ``draws``: a list of k D2vDraws (or
-    None)."""
-    step = make_d2v_train_step(model, tx)
-
-    def run(state: D2vTrainState, wavs, pads, generator=None,
-            draws: Optional[List[Optional[D2vDraws]]] = None):
-        per_step = []
-        for i in range(wavs.shape[0]):
-            state, m = step(state, wavs[i], pads[i], generator,
-                            None if draws is None else draws[i])
-            per_step.append(m)
-        return state, {k: torch.stack([m[k] for m in per_step]) for k in per_step[0]}
-
-    return run
 

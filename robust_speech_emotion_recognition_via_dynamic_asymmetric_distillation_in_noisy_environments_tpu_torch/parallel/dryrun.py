@@ -9,7 +9,7 @@ asserting finite losses:
 1. two fused extract+train steps at dp x tp;
 2. the cached-clean-features fused step with NOISEX-bank injection;
 3. one d2v step over the grid (tp shards qkv);
-4. the resident fused epoch runner, 2 steps over resident corpora;
+4. two resident fused steps over resident corpora;
 5. two fused-trainer epochs (startup, warmup and post-warmup) and a noisy
    validation, on a synthetic EMODB-named wav corpus;
 6. the d2v driver over the grid: 2 updates, its guards, a checkpoint and
@@ -111,7 +111,7 @@ def _dryrun_impl(n_devices: int, root: str) -> List[Tuple[str, float, float]]:
         init_fused,
         make_fused_extract_train_step,
         make_mesh,
-        make_resident_fused_epoch_runner,
+        make_resident_fused_step,
         make_sharded_d2v_step,
         place_d2v_state,
         place_fused,
@@ -186,7 +186,7 @@ def _dryrun_impl(n_devices: int, root: str) -> List[Tuple[str, float, float]]:
     d2v_loss = _finite(d2v_metrics["loss"], "d2v loss")
     stage.done("d2v sharded pretrain step")
 
-    # the resident fused epoch runner: 2 steps over resident corpora
+    # two resident fused steps over resident corpora
     n_res, t_feat = 2 * B, 63  # 63: the frames of 256 samples through the conv stack
     wav_sizes = rng.integers(T // 2, T + 1, n_res)
     feat_sizes = rng.integers(t_feat // 2, t_feat + 1, n_res)
@@ -195,15 +195,15 @@ def _dryrun_impl(n_devices: int, root: str) -> List[Tuple[str, float, float]]:
     clean_c = resident_from_flat(
         rng.normal(size=(int(feat_sizes.sum()), enc_cfg.embed_dim)).astype(np.float32),
         feat_sizes, cpu, labels=rng.integers(0, 4, n_res).astype(np.int32))
-    runner = make_resident_fused_epoch_runner(enc_s, head, tx_c, cfg_c, mesh)
+    res_step = make_resident_fused_step(enc_s, head, tx_c, cfg_c, mesh)
     idx = torch.from_numpy(rng.permutation(n_res).astype(np.int32).reshape(2, B))
     _h, _tx, state_r = init_dad_train_state(cfg_c.dad, torch.Generator().manual_seed(7))
-    _e, state_rs = place_fused(cfg_c, enc_state, state_r, mesh)
-    _st, mstack = runner(state_rs, clean_c, wav_c, idx, idx.flip(0), scalars, anchors, gen,
-                         noise_bank, t_clean=t_feat, t_wav=T)
-    assert tuple(mstack["total_loss"].shape) == (2,)
-    scan_loss = _finite(mstack["total_loss"].mean(), "resident loss")
-    stage.done("resident fused epoch runner (2 steps)")
+    _e, state_r = place_fused(cfg_c, enc_state, state_r, mesh)
+    for s in range(2):
+        state_r, metrics_r = res_step(state_r, clean_c, wav_c, idx[s], idx[1 - s], scalars,
+                                      anchors, gen, noise_bank, t_clean=t_feat, t_wav=T)
+        resident_loss = _finite(metrics_r["total_loss"], f"resident loss (step {s + 1})")
+    stage.done("resident fused step (2 steps)")
 
     # two fused-trainer epochs on a synthetic wav corpus (rank 0 writes it)
     if mesh.is_writer:
@@ -243,7 +243,7 @@ def _dryrun_impl(n_devices: int, root: str) -> List[Tuple[str, float, float]]:
     if mesh.is_writer:
         print(f"dryrun_multichip OK: mesh=({dp}x{tp}) devices={n_devices} "
               f"loss={total:.4f} cached_loss={cached_loss:.4f} d2v_loss={d2v_loss:.4f} "
-              f"scan_loss={scan_loss:.4f} trainer_loss={trainer_loss:.4f} "
+              f"resident_loss={resident_loss:.4f} trainer_loss={trainer_loss:.4f} "
               f"d2v_driver_loss={driver_loss:.4f}", flush=True)
     return stage.done_stages
 

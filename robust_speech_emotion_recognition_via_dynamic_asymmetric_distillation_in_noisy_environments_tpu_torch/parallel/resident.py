@@ -14,12 +14,9 @@ ids on padded rows, the same frame cap. The JAX package pads each 1-D clip
 slot to 128 samples for a TPU gather's speed; that changes no value and is
 not done here.
 
-The runners (``make_resident_*_epoch_runner``) loop over a chunk of steps
-on the device, as ``dad/epoch_scan.py`` does for streamed chunks. Over a
-mesh every rank holds the whole corpus (replicated, as in the JAX
+Over a mesh every rank holds the whole corpus (replicated, as in the JAX
 package), gathers the global batch pair and hands it to the fused mesh
-step, which takes the rank's rows. The d2v
-pretraining corpus (``resident_from_flat``, ``make_resident_d2v_step``)
+step, which takes the rank's rows. The d2v pretraining corpus (``resident_from_flat``, ``make_resident_d2v_step``)
 gathers fixed-size crops from per-row start offsets.
 """
 
@@ -31,7 +28,6 @@ import numpy as np
 import torch
 
 from ..data.batching import Batch, epoch_order, pad_to_bucket
-from ..dad.epoch_scan import pad_draws
 from ..dad.train_step import StepDraws, make_dad_train_step
 from ..utils import get_logger
 from .fused import CleanFeatureBatch, FusedBatch, FusedConfig, make_fused_extract_train_step
@@ -202,7 +198,7 @@ def paired_index_epoch(clean_it, noisy_it, epoch: int):
 
 
 def upload_index(idx: np.ndarray, device: torch.device) -> torch.Tensor:
-    """One small host-to-device copy of a step's (or a chunk's) indices."""
+    """One small host-to-device copy of a step's indices."""
     src = torch.from_numpy(idx)
     if device.type == "cuda":
         src = src.pin_memory()
@@ -238,15 +234,6 @@ def materialize_tracking(per_step: List[Dict[str, torch.Tensor]]) -> List[Dict[s
     return [{k: host[k][i] for k in keys} for i in range(len(per_step))]
 
 
-def materialize_chunked_metrics(per_chunk: List[Dict[str, torch.Tensor]], keys) -> np.ndarray:
-    """materialize_metrics for chunks whose metrics are stacked (S_chunk,):
-    (S_total, K) float32 in step order, one copy."""
-    if not per_chunk:
-        return np.zeros((0, len(keys)), np.float32)
-    return torch.stack([torch.cat([m[k].float().reshape(-1) for m in per_chunk]) for k in keys],
-                       dim=1).cpu().numpy()
-
-
 def make_resident_dad_step(head, tx, cfg):
     """The feature DAD step behind a gather from the resident corpora:
 
@@ -271,43 +258,10 @@ def make_resident_dad_step(head, tx, cfg):
     return step
 
 
-def make_resident_dad_epoch_runner(head, tx, cfg):
-    """A chunk of feature DAD steps over the resident corpora, the
-    counterpart of ``dad/epoch_scan.make_dad_epoch_runner``:
-
-    run(state, clean_c, noisy_c, clean_idx (S, B), noisy_idx (S, B),
-        scalars, anchors, generator=None, draws=None, *, t_pad,
-        frame_cap=None) -> (state', metrics_mean, tracking_stacked)
-
-    Both streams pad to the chunk-common ``t_pad``, as a streamed chunk
-    does. ``draws(s, noisy_batch)`` gives step s's draws at the batch's
-    own frame count; they are zero-padded to ``t_pad``."""
-    core = make_dad_train_step(head, tx, cfg)
-
-    def run(state, clean_c: ResidentClips, noisy_c: ResidentClips, clean_idx, noisy_idx,
-            scalars, anchors, generator=None,
-            draws: Optional[Callable[[int, Batch], Optional[StepDraws]]] = None,
-            *, t_pad: int, frame_cap: Optional[int] = None):
-        metrics, tracking = [], []
-        for s in range(clean_idx.shape[0]):
-            clean = gather_feature_batch(clean_c, clean_idx[s], t_pad, frame_cap)
-            noisy = gather_feature_batch(noisy_c, noisy_idx[s], t_pad, frame_cap)
-            d = None if draws is None else draws(s, noisy)
-            state, m, tr = core(state, clean, noisy, scalars, anchors, generator,
-                                None if d is None else pad_draws(d, t_pad))
-            metrics.append(m)
-            tracking.append(tr)
-        mean = {k: torch.stack([m[k] for m in metrics]).mean() for k in metrics[0]}
-        stacked = {k: torch.stack([t[k] for t in tracking]) for k in tracking[0]}
-        return state, mean, stacked
-
-    return run
-
-
 def _gather_fused_pair(clean_c: ResidentClips, wav_c: ResidentClips, clean_idx, noisy_idx,
                        t_clean: int, t_wav: int, frame_cap: Optional[int]):
     """One fused (clean features, noisy wavs) batch pair gathered from the
-    resident corpora: the prologue of the resident fused step and runner."""
+    resident corpora: the prologue of the resident fused step."""
     c = gather_feature_batch(clean_c, clean_idx, t_clean, frame_cap)
     wav, wmask = gather_clips(wav_c, noisy_idx, t_wav)
     clean = CleanFeatureBatch(feats=c.feats, frame_mask=c.padding_mask, labels=c.labels,
@@ -346,38 +300,6 @@ def make_resident_fused_step(encoder, head, tx, cfg: FusedConfig, mesh=None):
         return core(state, clean, noisy, scalars, anchors, generator, noise_bank, draws)
 
     return step
-
-
-def make_resident_fused_epoch_runner(encoder, head, tx, cfg: FusedConfig, mesh=None):
-    """A chunk of fused steps over the resident corpora:
-
-    run(state, clean_c, wav_c, clean_idx (S, B), noisy_idx (S, B), scalars,
-        anchors, generator=None, noise_bank=None, draws=None, *, t_clean,
-        t_wav, frame_cap=None) -> (state', metrics_stacked)
-
-    Every step of the chunk pads to the chunk-common (t_clean, t_wav);
-    ``draws(s)`` gives step s's draws (None: the generator). Metrics come
-    back stacked (S, ...), tracking included."""
-    step = make_resident_fused_step(encoder, head, tx, cfg, mesh)
-
-    def run(state, clean_c: ResidentClips, wav_c: ResidentClips, clean_idx, noisy_idx,
-            scalars, anchors, generator=None, noise_bank=None,
-            draws: Optional[Callable[[int], Optional[StepDraws]]] = None,
-            *, t_clean: int, t_wav: int, frame_cap: Optional[int] = None):
-        per_step = []
-        for s in range(clean_idx.shape[0]):
-            state, m = step(state, clean_c, wav_c, clean_idx[s], noisy_idx[s], scalars, anchors,
-                            generator, noise_bank, None if draws is None else draws(s),
-                            t_clean=t_clean, t_wav=t_wav, frame_cap=frame_cap)
-            per_step.append(m)
-        stacked = {k: torch.stack([m[k] for m in per_step]) for k in per_step[0]
-                   if k != "tracking"}
-        if "tracking" in per_step[0]:
-            stacked["tracking"] = {k: torch.stack([m["tracking"][k] for m in per_step])
-                                   for k in per_step[0]["tracking"]}
-        return state, stacked
-
-    return run
 
 
 def make_resident_d2v_step(model, tx):

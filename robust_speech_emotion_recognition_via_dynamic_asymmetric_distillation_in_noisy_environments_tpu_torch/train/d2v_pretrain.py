@@ -192,22 +192,6 @@ def index_crop_batches(ds: WavCropDataset, epoch: int, batch_size: int, sizes: n
         yield idx, starts
 
 
-def _chunked(batches, chunk: int, budget: int):
-    """Stacks up to ``chunk`` consecutive batches to (k, B, T), never more
-    than ``budget`` steps in all."""
-    buf, used = [], 0
-    for wav, pad in batches:
-        buf.append((wav, pad))
-        if len(buf) == chunk or used + len(buf) >= budget:
-            yield np.stack([w for w, _ in buf]), np.stack([p for _, p in buf])
-            used += len(buf)
-            buf = []
-            if used >= budget:
-                return
-    if buf:
-        yield np.stack([w for w, _ in buf]), np.stack([p for _, p in buf])
-
-
 def _dataset(dirs, pcfg, binarized: bool, **kw) -> WavCropDataset:
     if binarized:
         from ..data.binarized import BinarizedWavDataset
@@ -216,17 +200,17 @@ def _dataset(dirs, pcfg, binarized: bool, **kw) -> WavCropDataset:
     return WavCropDataset(dirs, pcfg, **kw)
 
 
-def stage_metrics(mstack: Dict[str, torch.Tensor]):
+def stage_metrics(metrics: Dict[str, torch.Tensor]):
     """A step's metrics copied to the host behind it on the stream: CUDA
     tensors go ``non_blocking`` into pinned buffers, followed by an event,
     so that reading them later waits for this step alone, not for the steps
     queued after it. Returns (host tensors, event or None); the buffers
     are held with the event until it has passed. CPU tensors are taken as
     they are."""
-    if not any(v.is_cuda for v in mstack.values()):
-        return mstack, None
+    if not any(v.is_cuda for v in metrics.values()):
+        return metrics, None
     host = {}
-    for k, v in mstack.items():
+    for k, v in metrics.items():
         buf = torch.empty(v.shape, dtype=v.dtype, pin_memory=True)
         buf.copy_(v, non_blocking=True)
         host[k] = buf
@@ -248,7 +232,6 @@ def run_d2v_pretrain(
     mesh=None,
     binarized: bool = False,
     transfer_dtype: Optional[str] = None,
-    scan_chunk: int = 1,
     valid_manifests: Optional[Sequence[str]] = None,
     valid_split: str = "valid",
     valid_every: int = 1000,
@@ -265,19 +248,17 @@ def run_d2v_pretrain(
     ``init_checkpoint``: an ``emotion2vec_base.pt`` whose encoder replaces
     the fresh one (the decoder stays fresh). ``transfer_dtype`` (e.g.
     "bfloat16"): wav batches cross to the device in that dtype (quantises
-    the waveform; inert when resident). ``scan_chunk``: updates per chunk
-    of stacked batches (the same history as per-step). ``valid_manifests``:
-    every ``valid_every`` steps and at the end, the masked objective over
+    the waveform; inert when resident). ``valid_manifests``: every
+    ``valid_every`` steps and at the end, the masked objective over
     ``<dir>/<valid_split>.tsv`` with dropout off and a fixed generator; the
     best state is kept and its encoder exported. ``resident``: True / False
     / "auto": the normalised training audio on the device once, each step's
     crops gathered there from (clip, start) index vectors (bit-equal
-    batches); "auto" engages under ``resident_max_bytes``; per-step only
-    (True with ``scan_chunk`` > 1 raises, "auto" streams).
+    batches); "auto" engages under ``resident_max_bytes``.
 
     ``mesh`` (``parallel.make_mesh``): the step over the (dp, tp) grid on
-    the rank's device (``device`` is not used); ``transfer_dtype``,
-    ``scan_chunk`` > 1 and the resident corpus are ignored with a warning,
+    the rank's device (``device`` is not used); ``transfer_dtype`` and the
+    resident corpus are ignored with a warning,
     ``pcfg.batch_size`` must divide by dp, and rank 0 alone writes.
 
     Test hooks: ``init_state`` (a ``D2vTrainState`` to start from),
@@ -310,22 +291,15 @@ def run_d2v_pretrain(
             logger.warning("transfer_dtype=%s ignored: the mesh-sharded step places "
                            "batches itself", transfer_dtype)
             transfer_dtype = None
-        if scan_chunk > 1:
-            logger.warning("scan_chunk=%d ignored under a mesh (per-batch dispatch)",
-                           scan_chunk)
         if resident not in (False, "off", None):
             logger.warning("resident corpus ignored under a mesh (the dp-sharded step "
                            "places batches itself)")
             resident = "off"
         if pcfg.batch_size % mesh.dp:
             raise ValueError(f"batch_size={pcfg.batch_size} must divide by dp={mesh.dp}")
-        scan_chunk = 1
         state = d2v_sharded.place_d2v_state(state, mesh)
         step_fn = d2v_sharded.make_sharded_d2v_step(model, tx, mesh)
-    chunk = max(1, scan_chunk)
-    if chunk > 1:
-        chunk_runner = d2v_models.make_d2v_chunk_runner(model, tx)
-    elif mesh is None:
+    else:
         # through the module, so that tests and probes can wrap the factory
         step_fn = d2v_models.make_d2v_train_step(model, tx)
     ds = _dataset(manifest_dirs, pcfg, binarized, weights=weights)
@@ -333,11 +307,6 @@ def run_d2v_pretrain(
                 len(ds), ds.num_batches(pcfg.batch_size), pcfg.max_steps, device)
 
     use_resident = resident not in (False, "off", None)
-    if use_resident and chunk > 1:
-        if resident is True:
-            raise ValueError("resident mode is per-step only: pass scan_chunk<=1")
-        logger.info("resident auto disabled: scan_chunk=%d requested", chunk)
-        use_resident = False
     if use_resident and resident == "auto" and ds.estimated_audio_nbytes() > resident_max_bytes:
         logger.info("resident corpus disabled: estimated %.1f GB > budget %.1f GB",
                     ds.estimated_audio_nbytes() / 1e9, resident_max_bytes / 1e9)
@@ -433,94 +402,73 @@ def run_d2v_pretrain(
     step = int(state.step)
     done = step >= pcfg.max_steps
 
-    def process_chunk(first: int, k: int, staged) -> bool:
-        """The collapse guards for every update of one dispatched chunk, and
-        its history entries; True on abort. ``staged`` is ``stage_metrics``'
-        (host buffers, event): only that chunk's copy is waited for."""
+    def process_step(s: int, staged) -> bool:
+        """The collapse guards for update ``s`` and its history entry; True
+        on abort. ``staged`` is ``stage_metrics``' (host buffers, event):
+        only that step's copy is waited for."""
         nonlocal last
         host, event = staged
         if event is not None:
             event.synchronize()
-        m = {kk: np.atleast_1d(v.float().numpy()) for kk, v in host.items()}
-        for i in range(k):
-            s = first + i
-            abort = False
-            if float(m["target_var"][i]) < pcfg.min_target_var:
-                logger.error("target variance collapsed at step %d (%.4f < %.2f)",
-                             s, float(m["target_var"][i]), pcfg.min_target_var)
-                abort = True
-            if float(m["pred_var"][i]) < pcfg.min_pred_var:
-                logger.error("prediction variance collapsed at step %d (%.4f < %.2f)",
-                             s, float(m["pred_var"][i]), pcfg.min_pred_var)
-                abort = True
-            # the final or aborting update is logged off the log_every grid
-            if s % log_every == 0 or s == 1 or abort or s >= pcfg.max_steps:
-                last = {kk: float(v[i]) for kk, v in m.items()}
-                last["step"] = s
-                last["wall_s"] = round(time.time() - t0, 1)
-                history.append(last)
-                logger.info("step %d | loss %.4f (d2v %.4f cls %.4f) | tvar %.3f pvar %.3f | "
-                            "decay %.5f", s, last["loss"], last["d2v_loss"], last["cls_loss"],
-                            last["target_var"], last["pred_var"], last["ema_decay"])
-            if abort:
-                return True
-        return False
-
-    def draws_for(first: int, k: int):
-        if step_draws is None:
-            return None
-        return [step_draws(first - 1 + i) for i in range(k)]
+        m = {kk: float(v.float()) for kk, v in host.items()}
+        abort = False
+        if m["target_var"] < pcfg.min_target_var:
+            logger.error("target variance collapsed at step %d (%.4f < %.2f)",
+                         s, m["target_var"], pcfg.min_target_var)
+            abort = True
+        if m["pred_var"] < pcfg.min_pred_var:
+            logger.error("prediction variance collapsed at step %d (%.4f < %.2f)",
+                         s, m["pred_var"], pcfg.min_pred_var)
+            abort = True
+        # the final or aborting update is logged off the log_every grid
+        if s % log_every == 0 or s == 1 or abort or s >= pcfg.max_steps:
+            last = dict(m, step=s, wall_s=round(time.time() - t0, 1))
+            history.append(last)
+            logger.info("step %d | loss %.4f (d2v %.4f cls %.4f) | tvar %.3f pvar %.3f | "
+                        "decay %.5f", s, last["loss"], last["d2v_loss"], last["cls_loss"],
+                        last["target_var"], last["pred_var"], last["ema_decay"])
+        return abort
 
     # the guards read a step's metrics while the next step runs (lag 1): a
-    # collapse is detected one dispatch late, its in-flight successor is
+    # collapse is detected one step late, its in-flight successor is
     # dropped from the history (the saved state includes it)
     aborted = False
-    pending = None  # (first step, k, metrics of that chunk)
+    pending = None  # (step, its staged metrics)
     while not done:
         epoch_had_batches = False
         if use_resident:
             batch_iter = index_crop_batches(ds, epoch, pcfg.batch_size, res_sizes,
                                             skip=batch_in_epoch)
         else:
-            src = ds.batches(epoch, pcfg.batch_size, skip=batch_in_epoch)
-            if chunk > 1:
-                src = _chunked(src, chunk, pcfg.max_steps - step)
             # with a mesh the sharded step moves its rows itself
-            batch_iter = prefetch(src, depth=2, to_device=mesh is None,
+            batch_iter = prefetch(ds.batches(epoch, pcfg.batch_size, skip=batch_in_epoch),
+                                  depth=2, to_device=mesh is None,
                                   transfer_fp32_as=transfer_dtype, device=device)
         for wavs, pads in batch_iter:
             epoch_had_batches = True
-            first = step + 1
+            d = None if step_draws is None else step_draws(step)
             if use_resident:
-                k = 1
-                d = draws_for(first, 1)
                 # (wavs, pads) are the (idx, starts) index vectors here
-                state, mstack = resident_step(
+                state, metrics = resident_step(
                     state, corpus, resident_mod.upload_index(wavs, device),
-                    resident_mod.upload_index(pads, device), rng,
-                    None if d is None else d[0], crop=pcfg.crop_size)
-            elif chunk > 1:
-                k = int(wavs.shape[0])
-                state, mstack = chunk_runner(state, wavs, pads, rng, draws_for(first, k))
+                    resident_mod.upload_index(pads, device), rng, d, crop=pcfg.crop_size)
             else:
-                k = 1
-                d = draws_for(first, 1)
-                state, mstack = step_fn(state, wavs, pads, rng, None if d is None else d[0])
-            step += k
-            batch_in_epoch += k
-            staged = stage_metrics(mstack)
-            if pending is not None and process_chunk(*pending):
+                state, metrics = step_fn(state, wavs, pads, rng, d)
+            step += 1
+            batch_in_epoch += 1
+            staged = stage_metrics(metrics)
+            if pending is not None and process_step(*pending):
                 done = aborted = True
-            pending = (first, k, staged)
+            pending = (step, staged)
             at_end = step >= pcfg.max_steps
             crossed = bool(checkpoint_every) and (
-                step // checkpoint_every > (first - 1) // checkpoint_every)
+                step // checkpoint_every > (step - 1) // checkpoint_every)
             vcrossed = (valid_ds is not None and valid_every > 0
-                        and step // valid_every > (first - 1) // valid_every)
+                        and step // valid_every > (step - 1) // valid_every)
             if at_end or done or crossed or vcrossed:
                 # drain first: history complete and ordered; after an abort
-                # the in-flight chunk is discarded
-                if not aborted and process_chunk(*pending):
+                # the in-flight step is discarded
+                if not aborted and process_step(*pending):
                     done = aborted = True
                 pending = None
             if vcrossed and not (at_end or done):

@@ -26,7 +26,6 @@ rank 0 alone writes checkpoints, reports and the history.
 
 from __future__ import annotations
 
-import itertools
 import os
 import re
 from collections import defaultdict
@@ -46,14 +45,12 @@ from ..dad import (
     run_anchor_calibration,
     set_learning_rate,
 )
-from ..dad.epoch_scan import make_dad_epoch_runner, stack_batches
 from ..dad.train_step import cosine_lr, draw_feature_step, epoch_end_dacp
 from ..data.batching import PaddedBatchIterator, paired_epoch
 from ..data.folds import corpus_fold_split
 from ..data.prefetch import prefetch, tree_map
 from ..data.store import FeatureStore, load_feature_store
 from ..parallel.resident import (
-    make_resident_dad_epoch_runner,
     make_resident_dad_step,
     materialize_metrics,
     materialize_tracking,
@@ -147,24 +144,14 @@ def _safe_name(name: str) -> str:
     return re.sub(r'[\\/*?:"<>|]', "", name)
 
 
-def chunked(items: Iterable, size: int):
-    """Consecutive lists of ``size`` items; the last may be shorter."""
-    it = iter(items)
-    while chunk := list(itertools.islice(it, size)):
-        yield chunk
-
-
-def average_metrics(rows: np.ndarray, weights) -> Dict[str, float]:
-    """The epoch's mean of each metric from its (S, K) rows of METRIC_KEYS,
-    each counted ``weights[i]`` times (a chunk's row is its mean): the JAX
-    package's host sums, in step order."""
+def average_metrics(rows: np.ndarray) -> Dict[str, float]:
+    """The epoch's mean of each metric from its (S, K) per-step rows of
+    METRIC_KEYS: the JAX package's host sums, in step order."""
     totals = dict.fromkeys(METRIC_KEYS, 0.0)
-    n = 0
-    for m, row in zip(weights, rows):
+    for row in rows:
         for k, v in zip(METRIC_KEYS, row):
-            totals[k] += float(v) * m
-        n += m
-    return {k: v / n for k, v in totals.items()} if n else {}
+            totals[k] += float(v)
+    return {k: v / len(rows) for k, v in totals.items()} if len(rows) else {}
 
 
 class CrossDomainTrainer:
@@ -176,7 +163,6 @@ class CrossDomainTrainer:
         clean_store: Optional[FeatureStore] = None,
         noisy_store: Optional[FeatureStore] = None,
         pretrain_params: Optional[Dict[str, torch.Tensor]] = None,
-        scan_chunk: int = 0,
         prefetch_depth: int = 2,
         transfer_dtype: Optional[str] = None,
         mesh=None,
@@ -185,11 +171,7 @@ class CrossDomainTrainer:
         device="cuda",
         step_draws: Optional[Callable[[int, int], StepDraws]] = None,
     ):
-        """``scan_chunk > 0`` steps through the epoch in chunks of that many
-        batches padded to a common frame count (``dad/epoch_scan.py``); the
-        history is the same as per-step stepping.
-
-        ``prefetch_depth > 0`` assembles and copies batch N+1 on a worker
+        """``prefetch_depth > 0`` assembles and copies batch N+1 on a worker
         thread while step N runs (``data/prefetch.py``); 0 disables.
 
         ``transfer_dtype`` (e.g. "bfloat16"): ship float32 features to the
@@ -212,14 +194,10 @@ class CrossDomainTrainer:
 
         ``mesh`` (``parallel.make_mesh``, dp only): every training batch split
         over dp, the losses over the whole batch; the device is the mesh's.
-        ``batch_size`` must divide by dp; ``scan_chunk`` and ``resident=True``
-        raise (the dp step streams; "auto" streams); ``transfer_dtype`` is
-        not applied.
+        ``batch_size`` must divide by dp; ``resident=True`` raises (the dp
+        step streams; "auto" streams); ``transfer_dtype`` is not applied.
         """
         if mesh is not None:
-            if scan_chunk:
-                raise ValueError("scan_chunk is not supported with a mesh (per-batch "
-                                 "dispatch already amortizes across devices)")
             if resident is True:
                 raise ValueError("resident=True is not supported with a mesh in the "
                                  "feature-mode trainer (the fused trainer supports "
@@ -231,7 +209,6 @@ class CrossDomainTrainer:
         self.device = resolve_device(device)
         self.cfg = cfg
         self.fold = fold
-        self.scan_chunk = scan_chunk
         self._resident_mode = resident
         self._resident_max_bytes = resident_max_bytes
         self.prefetch_depth = prefetch_depth
@@ -369,16 +346,13 @@ class CrossDomainTrainer:
                                                           self.mesh)
             self.state = shard_dad_state(self.state, self.mesh)
         self.eval_step = make_eval_step(self.head)
-        self._epoch_runner = None
-        if self.scan_chunk:
-            self._epoch_runner = make_dad_epoch_runner(self.head, self.tx, self.cfg)
         self.generator = torch.Generator(device=self.device).manual_seed(
             self.cfg.random_seed + 1)
         self._setup_feature_resident()
 
     def _setup_feature_resident(self) -> None:
         """Uploads the fold's clean and noisy training stores and builds the
-        gathering step or runner; or leaves the streamed path (resident
+        gathering step; or leaves the streamed path (resident
         False, or "auto" over its budget)."""
         self._resident = None
         if self._resident_mode is False or self.mesh is not None:
@@ -392,10 +366,7 @@ class CrossDomainTrainer:
             return
         self._resident = (resident_from_store(clean_sub, self.device),
                           resident_from_store(noisy_sub, self.device))
-        if self.scan_chunk:
-            self._resident_runner = make_resident_dad_epoch_runner(self.head, self.tx, self.cfg)
-        else:
-            self._resident_step = make_resident_dad_step(self.head, self.tx, self.cfg)
+        self._resident_step = make_resident_dad_step(self.head, self.tx, self.cfg)
 
     # ------------------------------------------------------------------
     def is_warmup(self, epoch: int) -> bool:
@@ -422,20 +393,15 @@ class CrossDomainTrainer:
         self.state = self.state._replace(
             opt_state=set_learning_rate(self.state.opt_state, cosine_lr(cfg, epoch))
         )
-        steps: list = []  # (steps counted, metrics) per dispatch
+        steps: list = []  # metrics per step
         tracked: list = []
-        if self._resident is not None and self.scan_chunk:
-            self._run_epoch_resident_scanned(epoch, scalars, steps, tracked)
-        elif self._resident is not None:
+        if self._resident is not None:
             self._run_epoch_resident(epoch, scalars, steps, tracked)
-        elif self._epoch_runner is not None:
-            self._run_epoch_scanned(epoch, scalars, steps, tracked)
         else:
             self._run_epoch_streamed(epoch, scalars, steps, tracked)
         self._log_tracked(epoch, tracked)
         self._epoch_end_dacp(epoch)
-        rows = materialize_metrics([metrics for _, metrics in steps], METRIC_KEYS)
-        return average_metrics(rows, [m for m, _ in steps])
+        return average_metrics(materialize_metrics(steps, METRIC_KEYS))
 
     def _run_epoch_streamed(self, epoch, scalars, steps, tracked) -> None:
         n = 0
@@ -451,43 +417,10 @@ class CrossDomainTrainer:
             self.state, metrics, tracking = self.train_step(
                 self.state, clean_b, noisy_b, scalars, self.anchors, self.generator, draws
             )
-            steps.append((1, metrics))
+            steps.append(metrics)
             n += 1
             if self._tracking(epoch):
                 tracked.append(tracking)
-
-    def _iter_scanned_chunks(self, epoch):
-        """(clean_stacked, noisy_stacked, each noisy batch's own frame
-        count) per chunk; the stacking runs in the prefetch worker."""
-        for buf in chunked(paired_epoch(self.clean_train, self.noisy_train, epoch),
-                           self.scan_chunk):
-            t_pad = max(b.feats.shape[1] for pair in buf for b in pair)
-            yield (
-                stack_batches([p[0] for p in buf], t_pad),
-                stack_batches([p[1] for p in buf], t_pad),
-                tuple(p[1].feats.shape[1] for p in buf),
-            )
-
-    def _run_epoch_scanned(self, epoch, scalars, steps, tracked) -> None:
-        n = 0
-        chunks = prefetch(
-            self._iter_scanned_chunks(epoch), depth=self.prefetch_depth,
-            to_device=True, transfer_fp32_as=self.transfer_dtype, device=self.device,
-        )
-        for clean_s, noisy_s, t_own in chunks:
-            def draws(s, n0=n):
-                t = t_own[s]
-                return self._draws(epoch, n0 + s, noisy_s.feats[s, :, :t],
-                                   noisy_s.padding_mask[s, :, :t])
-
-            self.state, metrics, tracking = self._epoch_runner(
-                self.state, clean_s, noisy_s, scalars, self.anchors, self.generator, draws
-            )
-            m = len(t_own)
-            steps.append((m, metrics))
-            n += m
-            if self._tracking(epoch):
-                tracked.extend({k: v[s] for k, v in tracking.items()} for s in range(m))
 
     def _run_epoch_resident(self, epoch, scalars, steps, tracked) -> None:
         """Per step the host ships two (B,) index vectors; the batches are
@@ -502,37 +435,9 @@ class CrossDomainTrainer:
                 lambda b, n=n: self._draws(epoch, n, b.feats, b.padding_mask),
                 t_clean=t_c, t_noisy=t_n, frame_cap=cap,
             )
-            steps.append((1, metrics))
+            steps.append(metrics)
             if self._tracking(epoch):
                 tracked.append(tracking)
-
-    def _run_epoch_resident_scanned(self, epoch, scalars, steps, tracked) -> None:
-        """Chunks of ``scan_chunk`` steps, one (S, B) index upload each, the
-        batches padded to the chunk-common frame count as in
-        ``_run_epoch_scanned``."""
-        clean_c, noisy_c = self._resident
-        cap = self.clean_train.max_frames
-        n = 0
-        for buf in chunked(paired_index_epoch(self.clean_train, self.noisy_train, epoch),
-                           self.scan_chunk):
-            t_own = [t for _c, (_idx, t) in buf]
-            t_pad = max(t for p in buf for (_idx, t) in p)
-
-            def draws(s, b, n0=n):
-                t = t_own[s]
-                return self._draws(epoch, n0 + s, b.feats[:, :t], b.padding_mask[:, :t])
-
-            self.state, metrics, tracking = self._resident_runner(
-                self.state, clean_c, noisy_c,
-                upload_index(np.stack([c for (c, _), _ in buf]), self.device),
-                upload_index(np.stack([x for _, (x, _) in buf]), self.device),
-                scalars, self.anchors, self.generator, draws, t_pad=t_pad, frame_cap=cap,
-            )
-            m = len(buf)
-            steps.append((m, metrics))
-            n += m
-            if self._tracking(epoch):
-                tracked.extend({k: v[s] for k, v in tracking.items()} for s in range(m))
 
     def _log_tracked(self, epoch: int, tracked: list) -> None:
         """The tracked samples' rows of this epoch's steps, in step and row
@@ -792,7 +697,6 @@ def run_cv(
     clean_store: Optional[FeatureStore] = None,
     noisy_store: Optional[FeatureStore] = None,
     pretrain_params: Optional[Dict[str, torch.Tensor]] = None,
-    scan_chunk: int = 0,
     prefetch_depth: int = 2,
     transfer_dtype: Optional[str] = None,
     mesh=None,
@@ -820,7 +724,6 @@ def run_cv(
                 clean_store=clean_store,
                 noisy_store=noisy_store,
                 pretrain_params=pretrain_params,
-                scan_chunk=scan_chunk,
                 prefetch_depth=prefetch_depth,
                 transfer_dtype=transfer_dtype,
                 mesh=mesh,

@@ -53,9 +53,7 @@ from ..parallel.fused import (
     validate_injection,
 )
 from ..parallel.resident import (
-    make_resident_fused_epoch_runner,
     make_resident_fused_step,
-    materialize_chunked_metrics,
     materialize_metrics,
     paired_index_epoch,
     resident_from_store,
@@ -69,7 +67,6 @@ from .dad_trainer import (
     CrossDomainTrainer,
     _safe_name,
     average_metrics,
-    chunked,
     extract_noise_info,
 )
 
@@ -250,7 +247,6 @@ class FusedCrossDomainTrainer(CrossDomainTrainer):
         extract_buckets: Optional[Sequence[int]] = None,
         resident="auto",
         resident_max_bytes: int = RESIDENT_MAX_BYTES,
-        scan_chunk: int = 0,
         device="cuda",
         step_draws: Optional[Callable[[int, int], StepDraws]] = None,
     ):
@@ -270,20 +266,13 @@ class FusedCrossDomainTrainer(CrossDomainTrainer):
         bfloat16 when the encoder is bfloat16 (lossless: its f32 features
         are bf16 values), else f32.
 
-        ``scan_chunk > 0`` (resident only): run each epoch in chunks of that
-        many steps, one index upload a chunk, both streams padded to the
-        chunk-common buckets.
-
         ``step_draws(epoch, step)``: a test hook that gives each training
         step's injection, weak and strong draws instead of the trainer's
         generator.
 
         ``mesh`` (``parallel.make_mesh``): batches over dp, the encoder over
-        tp, the resident corpus replicated on every rank; ``scan_chunk``
-        raises and ``transfer_dtype`` is not applied (the JAX rules)."""
-        if mesh is not None and scan_chunk:
-            raise ValueError("scan_chunk is not supported with a mesh (per-batch dispatch "
-                             "keeps dp/tp shardings simple); pass scan_chunk=0")
+        tp, the resident corpus replicated on every rank; ``transfer_dtype``
+        is not applied (the JAX rule)."""
         if mesh is not None and transfer_dtype:
             logger.warning("transfer_dtype=%s ignored: the fused mesh step places the "
                            "batches", transfer_dtype)
@@ -308,7 +297,7 @@ class FusedCrossDomainTrainer(CrossDomainTrainer):
         super().__init__(
             cfg, fold=fold, experiment_name=experiment_name,
             clean_store=shared["clean_store"], noisy_store=shared["noisy_store"],
-            pretrain_params=pretrain_params, scan_chunk=0, prefetch_depth=prefetch_depth,
+            pretrain_params=pretrain_params, prefetch_depth=prefetch_depth,
             mesh=mesh, device=device, step_draws=step_draws,
         )
         self.fused_cfg = replace(fused_cfg, dad=self.cfg)
@@ -336,19 +325,14 @@ class FusedCrossDomainTrainer(CrossDomainTrainer):
         self.encoder = self.extractor.model
         self._fused_step = make_fused_extract_train_step(self.encoder, self.head, self.tx,
                                                          self.fused_cfg, self.mesh)
-        self.fused_scan_chunk = scan_chunk
         self._setup_resident(resident, resident_max_bytes)
 
     def _setup_resident(self, resident, resident_max_bytes: int) -> None:
-        """Uploads the fold's training corpus and builds the gathering step
-        or runner; or leaves the streamed path (resident False, or "auto"
-        over its budget)."""
+        """Uploads the fold's training corpus and builds the gathering step;
+        or leaves the streamed path (resident False, or "auto" over its
+        budget)."""
         self._resident = None
         if resident is False:
-            if self.fused_scan_chunk:
-                logger.warning("scan_chunk=%d is inert without the resident corpus "
-                               "(the fused chunks run over resident clips only)",
-                               self.fused_scan_chunk)
             return
         clean_sub, wav_sub = self.clean_train.store, self.noisy_wav_train.store
         feat_dtype = "bfloat16" if self.fused_cfg.encoder.dtype == "bfloat16" else None
@@ -356,19 +340,12 @@ class FusedCrossDomainTrainer(CrossDomainTrainer):
         if resident == "auto" and est > resident_max_bytes:
             logger.info(
                 "resident corpus disabled: estimated %.1f GB > budget %.1f GB; streaming "
-                "batches from the host%s", est / 1e9, resident_max_bytes / 1e9,
-                (f" (scan_chunk={self.fused_scan_chunk} inert: the fused chunks run over "
-                 "resident clips only)") if self.fused_scan_chunk else "",
-            )
+                "batches from the host", est / 1e9, resident_max_bytes / 1e9)
             return
         self._resident = (resident_from_store(clean_sub, self.device, dtype=feat_dtype),
                           resident_from_store(wav_sub, self.device, labeled=False))
-        if self.fused_scan_chunk:
-            self._resident_runner = make_resident_fused_epoch_runner(
-                self.encoder, self.head, self.tx, self.fused_cfg)
-        else:
-            self._resident_step = make_resident_fused_step(
-                self.encoder, self.head, self.tx, self.fused_cfg, self.mesh)
+        self._resident_step = make_resident_fused_step(
+            self.encoder, self.head, self.tx, self.fused_cfg, self.mesh)
 
     # ------------------------------------------------------------------
     def _paired_fused_epoch(self, epoch: int):
@@ -397,17 +374,13 @@ class FusedCrossDomainTrainer(CrossDomainTrainer):
         )
         per_step: list = []
         tracked: list = []
-        if self._resident is not None and self.fused_scan_chunk:
-            rows = self._train_epoch_resident_scanned(epoch, scalars, tracked)
+        if self._resident is not None:
+            self._train_epoch_resident(epoch, scalars, per_step, tracked)
         else:
-            if self._resident is not None:
-                self._train_epoch_resident(epoch, scalars, per_step, tracked)
-            else:
-                self._train_epoch_streamed(epoch, scalars, per_step, tracked)
-            rows = materialize_metrics(per_step, METRIC_KEYS)
+            self._train_epoch_streamed(epoch, scalars, per_step, tracked)
         self._log_tracked(epoch, tracked)
         self._epoch_end_dacp(epoch)
-        return average_metrics(rows, [1] * len(rows))
+        return average_metrics(materialize_metrics(per_step, METRIC_KEYS))
 
     def _train_epoch_streamed(self, epoch, scalars, per_step, tracked) -> None:
         # over a mesh the step takes each rank's rows of the host batches
@@ -439,31 +412,6 @@ class FusedCrossDomainTrainer(CrossDomainTrainer):
             if self._tracking(epoch):
                 tracked.append(metrics["tracking"])
 
-    def _train_epoch_resident_scanned(self, epoch, scalars, tracked) -> np.ndarray:
-        """Chunks of ``scan_chunk`` steps, one (S, B) index upload each, both
-        streams padded to the chunk-common buckets. Returns the (S, K)
-        metric rows."""
-        clean_c, wav_c = self._resident
-        cap = self.clean_train.max_frames
-        chunks, n = [], 0
-        for buf in chunked(paired_index_epoch(self.clean_train, self.noisy_wav_train, epoch),
-                           self.fused_scan_chunk):
-            self.state, metrics = self._resident_runner(
-                self.state, clean_c, wav_c,
-                upload_index(np.stack([c for (c, _), _ in buf]), self.device),
-                upload_index(np.stack([w for _, (w, _) in buf]), self.device),
-                scalars, self.anchors, self.generator, self._noise_bank,
-                lambda s, n0=n: self._fused_draws(epoch, n0 + s),
-                t_clean=max(t for (_i, t), _ in buf), t_wav=max(t for _, (_i, t) in buf),
-                frame_cap=cap,
-            )
-            chunks.append(metrics)
-            if self._tracking(epoch):
-                tracked.extend({k: v[s] for k, v in metrics["tracking"].items()}
-                               for s in range(len(buf)))
-            n += len(buf)
-        return materialize_chunked_metrics(chunks, METRIC_KEYS)
-
 
 def run_fused_cv(
     cfg: DADConfig,
@@ -479,7 +427,6 @@ def run_fused_cv(
     mesh=None,
     transfer_dtype: Optional[str] = None,
     resident="auto",
-    scan_chunk: int = 0,
     device="cuda",
 ) -> Dict:
     """K-fold sweep of the fused trainer (``run_cv``'s counterpart). The
@@ -498,7 +445,7 @@ def run_fused_cv(
                 noise_root=noise_root, fold=fold, experiment_name=experiment_name,
                 pretrain_params=pretrain_params, prefetch_depth=prefetch_depth,
                 transfer_dtype=transfer_dtype, shared=shared, resident=resident,
-                scan_chunk=scan_chunk, mesh=mesh, device=device,
+                mesh=mesh, device=device,
             )
             trainer.train()
             all_results.append(trainer.final_summary())

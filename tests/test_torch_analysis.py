@@ -24,6 +24,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import threadpoolctl
 import torch
 
 from robust_speech_emotion_recognition_via_dynamic_asymmetric_distillation_in_noisy_environments_tpu import (
@@ -81,6 +82,7 @@ from robust_speech_emotion_recognition_via_dynamic_asymmetric_distillation_in_no
 
 from helpers import make_iemocap_dir
 from test_pipeline_tools import _fake_results_dir
+from torch_parity import one_torch_thread  # noqa: F401 — an autouse fixture
 
 EMBED_TOL = dict(atol=1e-5, rtol=0)
 SCORE_TOL = dict(rtol=1e-5)
@@ -95,6 +97,15 @@ def _json_files(root):
 def _json(path):
     with open(path) as f:
         return json.load(f)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_native_thread():
+    """scikit-learn's t-SNE and scores, and numpy's BLAS, on one thread
+    each: beside the other test workers their full pools oversubscribe the
+    cores (torch's own pool is ``one_torch_thread``'s)."""
+    with threadpoolctl.threadpool_limits(1):
+        yield
 
 
 @pytest.fixture(scope="module")

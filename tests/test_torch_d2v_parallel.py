@@ -463,17 +463,16 @@ def test_driver_over_2x2_writes_the_single_process_files(driver, four):
 
 
 def test_driver_mesh_warnings_and_indivisible_batch(driver, caplog, tmp_path):
-    """The three ignored flags warn (they are not errors), and a batch that
+    """The two ignored flags warn (they are not errors), and a batch that
     does not divide by dp raises the JAX error before any collective."""
     mesh = Mesh(dp=3, tp=1, rank=0, device=torch.device("cpu"), dp_group=None, tp_group=None)
     with caplog.at_level(logging.WARNING), pytest.raises(ValueError,
                                                          match="must divide by dp=3"):
         ttrain.run_d2v_pretrain(driver["cfg"], driver["pcfg"], [driver["data"]],
                                 str(tmp_path / "x"), mesh=mesh, transfer_dtype="bfloat16",
-                                scan_chunk=2, resident="auto")
+                                resident="auto")
     text = caplog.text
-    for words in ("transfer_dtype=bfloat16 ignored", "scan_chunk=2 ignored",
-                  "resident corpus ignored"):
+    for words in ("transfer_dtype=bfloat16 ignored", "resident corpus ignored"):
         assert words in text, words
 
 

@@ -1,8 +1,8 @@
 """The port's d2v host side and training loop against the JAX package: crop
 batches, the resident gathers and packed stores bit- or byte-identical;
 ``run_d2v_pretrain`` fed the JAX run's step and validation draws (history,
-validation, best state, final encoder, resume, ``scan_chunk``, resident,
-the collapse guard); the command line's file tree and refusals; the
+validation, best state, final encoder, resume, resident, the collapse
+guard); the command line's file tree and refusals; the
 exported encoder downstream.
 
 The JAX runs reuse one compiled train step and one compiled eval step
@@ -343,14 +343,9 @@ def test_run_matches_jax_with_validation_and_best_state(ref, tmp_path):
     np.testing.assert_allclose(got.numpy()[valid], conv.numpy()[valid], **F32_TOL)
 
 
-def test_scan_chunk_and_resident_match_jax(ref, tmp_path):
-    want = train_only(ref.hist)
-    ref.run_port(str(tmp_path / "chunked"), scan_chunk=2)  # the last chunk cut to 1 by the budget
-    assert_history(ref.history(str(tmp_path / "chunked")), want)
+def test_resident_matches_jax(ref, tmp_path):
     ref.run_port(str(tmp_path / "resident"), resident=True)
-    assert_history(ref.history(str(tmp_path / "resident")), want)
-    with pytest.raises(ValueError, match="per-step"):
-        ref.run_port(str(tmp_path / "bad"), resident=True, scan_chunk=2)
+    assert_history(ref.history(str(tmp_path / "resident")), train_only(ref.hist))
 
 
 @pytest.mark.parametrize("crash_after", [3, 2])  # mid-epoch; an exact epoch boundary

@@ -12,7 +12,7 @@ STAGES = (
     "fused extract+train step (2 steps, dp x tp)",
     "cached-clean + NOISEX-bank fused step",
     "d2v sharded pretrain step",
-    "resident fused epoch runner (2 steps)",
+    "resident fused step (2 steps)",
     "fused trainer: startup, 2 epochs, noisy validation",
     "d2v driver over the grid (2 updates, guards, checkpoint, export)",
 )

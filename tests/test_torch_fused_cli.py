@@ -108,7 +108,7 @@ def test_from_wav_without_a_gpu_or_a_checkpoint_fails(corpus, tmp_path, monkeypa
         assert "--from-wav needs --checkpoint" in capsys.readouterr().err
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     args = cli.build_parser().parse_args(base + ["--checkpoint", ckpt])
-    assert args.device == "cuda" and args.resident == "auto" and args.scan_chunk == 0
+    assert args.device == "cuda" and args.resident == "auto"
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         cli.main(base + ["--checkpoint", ckpt, "--encoder-json", json.dumps(ENC_JSON)])
     assert not os.path.exists(tmp_path / "emodb_cross_domain_results")

@@ -573,9 +573,8 @@ def test_feature_trainer_mesh_rules(trainer, tmp_path):
         CrossDomainTrainer,
     )
 
-    for kw, words in ((dict(scan_chunk=4), "scan_chunk"), (dict(resident=True), "resident=True")):
-        with pytest.raises(ValueError, match=words):
-            CrossDomainTrainer(cfg, mesh=mesh, device="cpu", **kw)
+    with pytest.raises(ValueError, match="resident=True"):
+        CrossDomainTrainer(cfg, mesh=mesh, device="cpu", resident=True)
     with pytest.raises(ValueError, match="batch_size=8 must divide by dp=3"):
         CrossDomainTrainer(cfg, mesh=dataclasses.replace(mesh, dp=3), device="cpu")
     # a rank other than 0 writes nothing: no results tree, checkpoint or report

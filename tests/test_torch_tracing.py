@@ -149,7 +149,7 @@ RUN = dict(crop_size=1500, min_sample_size=1000, batch_size=2, max_steps=4, warm
            clone_batch=2)
 
 
-@pytest.mark.parametrize("mode", ["step", "resident", "chunk"])
+@pytest.mark.parametrize("mode", ["step", "resident"])
 def test_d2v_step_spans_hold_one_loss_and_one_update(tmp_path, mode):
     rng = np.random.default_rng(0)
     man = tmp_path / "corpus"
@@ -161,8 +161,7 @@ def test_d2v_step_spans_hold_one_loss_and_one_update(tmp_path, mode):
     _jc, _jp, cfg, pcfg = d2v_cfgs(**RUN)
     t0 = time.monotonic()
     td2v.run_d2v_pretrain(cfg, pcfg, [str(man)], str(tmp_path / "out"), log_every=2,
-                          checkpoint_every=100, resident=mode == "resident",
-                          scan_chunk=2 if mode == "chunk" else 1, device="cpu")
+                          checkpoint_every=100, resident=mode == "resident", device="cpu")
     spans = since(t0, {"d2v_pretrain.loss", "d2v_pretrain.update"})
     # a loss then its update, once a step, in turn
     assert [s.name for s in sorted(spans, key=lambda s: s.start)] == [

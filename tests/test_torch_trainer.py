@@ -1,6 +1,5 @@
 """The port's feature-level DAD trainer against the JAX package's, and its
-own invariants: the epoch runner (``--scan-chunk``), the whole trainer on
-tiny IEMOCAP-layout stores (5 sessions x 12 clips, D 16, one length
+own invariants: the whole trainer on tiny IEMOCAP-layout stores (5 sessions x 12 clips, D 16, one length
 bucket), resume, and ``cli dad``.
 
 In the whole-trainer comparison the port is fed the JAX trainer's own
@@ -21,8 +20,6 @@ predictions and the best epoch are compared exactly.
 import json
 import os
 
-import jax
-import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -32,17 +29,6 @@ from robust_speech_emotion_recognition_via_dynamic_asymmetric_distillation_in_no
 )
 from robust_speech_emotion_recognition_via_dynamic_asymmetric_distillation_in_noisy_environments_tpu.configs import (
     dad_preset as jax_dad_preset,
-)
-from robust_speech_emotion_recognition_via_dynamic_asymmetric_distillation_in_noisy_environments_tpu.dad import (
-    StepScalars as JaxStepScalars,
-    init_dad_train_state as jax_init_state,
-)
-from robust_speech_emotion_recognition_via_dynamic_asymmetric_distillation_in_noisy_environments_tpu.dad.epoch_scan import (
-    make_dad_epoch_runner as jax_make_runner,
-    stack_batches as jax_stack_batches,
-)
-from robust_speech_emotion_recognition_via_dynamic_asymmetric_distillation_in_noisy_environments_tpu.data.batching import (
-    Batch as JaxBatch,
 )
 from robust_speech_emotion_recognition_via_dynamic_asymmetric_distillation_in_noisy_environments_tpu.train import (
     CrossDomainTrainer as JaxTrainer,
@@ -54,21 +40,10 @@ from robust_speech_emotion_recognition_via_dynamic_asymmetric_distillation_in_no
 from robust_speech_emotion_recognition_via_dynamic_asymmetric_distillation_in_noisy_environments_tpu_torch.configs import (
     dad_preset,
 )
-from robust_speech_emotion_recognition_via_dynamic_asymmetric_distillation_in_noisy_environments_tpu_torch.dad import (
-    StepDraws,
-    StepScalars,
-    init_dad_train_state,
-)
-from robust_speech_emotion_recognition_via_dynamic_asymmetric_distillation_in_noisy_environments_tpu_torch.dad.epoch_scan import (
-    make_dad_epoch_runner,
-    stack_batches,
-)
 from robust_speech_emotion_recognition_via_dynamic_asymmetric_distillation_in_noisy_environments_tpu_torch.data import (
-    Batch,
     write_feature_store,
 )
 from robust_speech_emotion_recognition_via_dynamic_asymmetric_distillation_in_noisy_environments_tpu_torch.models.convert import (
-    flax_train_state_to_torch,
     load_torch_file,
     save_torch_file,
 )
@@ -78,7 +53,7 @@ from robust_speech_emotion_recognition_via_dynamic_asymmetric_distillation_in_no
     run_cv,
 )
 
-from torch_parity import jax_normal, jax_strong_draws, jax_trainer_draws
+from torch_parity import jax_trainer_draws
 
 METRIC_TOL = dict(atol=2e-5, rtol=1e-4)
 STATE_TOL = dict(atol=2e-6, rtol=1e-4)
@@ -206,89 +181,6 @@ def test_whole_trainer_matches_jax(tmp_path, monkeypatch):
             assert _json(os.path.join(_reports(t), name)) == _json(os.path.join(_reports(jt), name))
 
 
-def test_scan_chunk_equals_per_step(tmp_path, monkeypatch):
-    """Several length buckets, so chunks pad; dropout on, draws from the
-    trainer's generator: a chunked run takes the same draws."""
-    monkeypatch.chdir(tmp_path)
-    clean, noisy = _write_stores(str(tmp_path), seed=3, long_every=7)
-    cfg = dad_preset("iemocap", OVERRIDES,
-                     **_cfg_kw(tmp_path, clean, noisy, length_buckets=(16, 32, 64)))
-    runs = {}
-    for chunk in (0, 2, 3):
-        t = CrossDomainTrainer(cfg, fold=0, experiment_name=f"chunk{chunk}", device="cpu",
-                               scan_chunk=chunk, prefetch_depth=chunk % 2)
-        t.train()
-        runs[chunk] = t
-    shapes = {b.feats.shape[1] for b in runs[2].noisy_train}
-    assert len(shapes) > 1
-    want = _json(os.path.join(_reports(runs[0]), "training_history.json"))
-    want_bias = _json(os.path.join(_reports(runs[0]), "confirmation_bias_log.json"))
-    for chunk in (2, 3):
-        _assert_history_close(_json(os.path.join(_reports(runs[chunk]), "training_history.json")),
-                              want)
-        _assert_bias_logs_close(
-            _json(os.path.join(_reports(runs[chunk]), "confirmation_bias_log.json")), want_bias)
-        for k, v in runs[0].state.ssrl.student.items():
-            torch.testing.assert_close(runs[chunk].state.ssrl.student[k], v, **STATE_TOL)
-
-
-def test_epoch_runner_matches_jax(rng):
-    """One chunk of 4 batches of different frame counts through the port's
-    runner and the JAX package's lax.scan runner, fed the scan's draws."""
-    kw = dict(input_dim=D, hidden_dim=8, batch_size=8, warmup_epochs=1, ecda_start_epoch=1,
-              epochs=8, weight_ramp_epochs=2, dropout_rate=0.0)
-    jcfg, cfg = jax_dad_preset("iemocap", OVERRIDES, **kw), dad_preset("iemocap", OVERRIDES, **kw)
-
-    def batch(labeled, T):
-        feats = rng.normal(size=(8, T, D)).astype(np.float32)
-        lengths = rng.integers(2, T + 1, 8)
-        labels = rng.integers(0, 4, 8).astype(np.int32)
-        feats += labels[:, None, None] * 0.5
-        return JaxBatch(feats, np.arange(T)[None, :] >= lengths[:, None],
-                        labels if labeled else np.full(8, -1, np.int32),
-                        np.arange(8, dtype=np.int32), np.ones(8, bool))
-
-    Ts = (5, 9, 7, 9)
-    cleans, noisies = [batch(True, T) for T in Ts], [batch(False, T) for T in Ts]
-    t_pad = max(Ts)
-    jclean, jnoisy = jax_stack_batches(cleans, t_pad), jax_stack_batches(noisies, t_pad)
-    pclean, pnoisy = stack_batches(cleans, t_pad), stack_batches(noisies, t_pad)
-    for a, b in zip(jclean + jnoisy, pclean + pnoisy):
-        np.testing.assert_array_equal(a, b)
-
-    head, tx, jstate = jax_init_state(jcfg, jax.random.PRNGKey(0))
-    state = flax_train_state_to_torch(jax.tree.map(np.array, jstate))
-    thead, ttx, _ = init_dad_train_state(cfg, torch.Generator().manual_seed(0))
-    key = jax.random.PRNGKey(11)
-    keys = jax.random.split(key, len(Ts))
-
-    def draws(s):
-        _k_dc, k_weak, k_strong, _k_ds = jax.random.split(keys[s], 4)
-        return StepDraws(weak=jax_normal(k_weak, (8, t_pad, D)),
-                         strong=jax_strong_draws(k_strong, (8, t_pad, D),
-                                                 pnoisy.padding_mask[s], jcfg.augment))
-
-    anchors = np.zeros(4, np.float32)
-    jstate, jm, jtr = jax_make_runner(head, tx, jcfg)(
-        jstate, jclean, jnoisy, JaxStepScalars.for_epoch(jcfg, 3), jnp.asarray(anchors), key)
-    to_t = lambda b: Batch(*(torch.from_numpy(v) for v in b))  # noqa: E731
-    state, m, tr = make_dad_epoch_runner(thead, ttx, cfg)(
-        state, to_t(pclean), to_t(pnoisy), StepScalars.for_epoch(cfg, 3),
-        torch.from_numpy(anchors), None, draws)
-    for k in ("total_loss", "supervised_ce_loss", "consistency_loss", "ecda_loss"):
-        torch.testing.assert_close(m[k], torch.tensor(float(jm[k])), **METRIC_TOL, msg=k)
-    assert float(m["consistency_loss"]) > 0 and float(m["ecda_loss"]) > 0
-    assert tr["pseudo_label"].shape == (len(Ts), 8)
-    np.testing.assert_array_equal(tr["is_masked_in"].numpy(), np.asarray(jtr["is_masked_in"]))
-    np.testing.assert_allclose(tr["certainty_score"].numpy(), np.asarray(jtr["certainty_score"]),
-                               **METRIC_TOL)
-    want = flax_train_state_to_torch(jax.tree.map(np.array, jstate))
-    for k, v in want.ssrl.student.items():
-        torch.testing.assert_close(state.ssrl.student[k], v, **STATE_TOL, msg=k)
-    for f, v in want.dacp._asdict().items():
-        torch.testing.assert_close(getattr(state.dacp, f), v, **STATE_TOL, msg=f)
-
-
 def test_resume_equals_an_uninterrupted_run(tmp_path, monkeypatch):
     monkeypatch.chdir(tmp_path)
     clean, noisy = _write_stores(str(tmp_path))
@@ -395,13 +287,35 @@ def test_cli_dad_refuses_what_is_not_ported(tmp_path, capsys, caplog, monkeypatc
         assert len(json.load(f)["total_loss"]) == 2
 
 
+@pytest.mark.parametrize("argv", [
+    ["dad", "--corpus", "iemocap", "--clean", "c", "--noisy", "n"],
+    ["dad", "--corpus", "emodb", "--from-wav", "manifests"],
+    ["d2v-pretrain", "--manifests", "m", "--save-dir", "out"],
+], ids=["dad", "dad_from_wav", "d2v_pretrain"])
+def test_chunked_epoch_flag_is_jax_only(argv, capsys):
+    """A deliberate difference: the JAX CLI can step an epoch in chunks of
+    batches (one ``lax.scan`` dispatch a chunk); the port steps batch by
+    batch only, and its parser refuses the flag."""
+    flag = "--scan-chunk"
+    # the JAX parser takes the flag: only the stray argument is refused
+    with pytest.raises(SystemExit) as e:
+        jax_cli.main(argv + [flag, "2", "--stray"])
+    assert e.value.code == 2
+    assert capsys.readouterr().err.rstrip().endswith("unrecognized arguments: --stray")
+    cli.build_parser().parse_args(argv)  # the command line parses without it
+    with pytest.raises(SystemExit) as e:
+        cli.main(argv + [flag, "2"])
+    assert e.value.code == 2
+    assert f"unrecognized arguments: {flag} 2" in capsys.readouterr().err
+
+
 def test_cli_dad_without_a_gpu_and_without_device_cpu_fails(tmp_path, monkeypatch):
     monkeypatch.chdir(tmp_path)
     clean, noisy = _write_stores(str(tmp_path))
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     args = cli.build_parser().parse_args(["dad", "--corpus", "iemocap", "--clean", clean,
                                           "--noisy", noisy])
-    assert args.device == "cuda" and args.scan_chunk == 0
+    assert args.device == "cuda"
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         cli.main(["dad", "--corpus", "iemocap", "--clean", clean, "--noisy", noisy])
     assert not os.path.exists(tmp_path / "iemocap_mutil-noisy_cross_domain_results")
